@@ -1,0 +1,97 @@
+"""Shared building blocks: BatchNorm with the JAX package's statistics, ConvModule.
+
+Modules take and return channel-last tensors at their public ``forward``
+where the JAX package does; inside, convolutions run on a permuted view
+(NCHW shape, channels-last memory), so no copy is made at the boundary.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+# torch BatchNorm2d defaults, as in rcf_tpu/nn/layers.py: momentum 0.1 (Flax's
+# 0.9 on the old value), eps 1e-5.
+BN_MOMENTUM = 0.1
+BN_EPS = 1e-5
+
+
+def to_nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+class BatchNorm2d(nn.Module):
+    """BatchNorm over NCHW with Flax's running statistics.
+
+    Training normalizes with the batch statistics, as ``nn.BatchNorm2d``
+    does, but updates ``running_var`` with the *biased* batch variance, as
+    Flax (and so the JAX package) does; torch's own module uses the
+    unbiased one. State: ``weight``, ``bias``, ``running_mean``,
+    ``running_var``.
+    """
+
+    def __init__(self, num_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, False, 0.0, BN_EPS)
+        # momentum=1 makes the fused op hand back the batch mean and the
+        # unbiased batch variance in these scratch buffers.
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.ones_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, BN_EPS)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            m = BN_MOMENTUM
+            self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1 - m).add_(var, alpha=m * (n - 1) / n)
+        return y
+
+
+def he_normal_(w: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    """Flax's ``he_normal``: truncated normal (+-2 sd), variance 2/fan_in."""
+    fan_in = w[0].numel()
+    std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
+    lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
+    with torch.no_grad():
+        w.uniform_(lo, hi, generator=generator).erfinv_().mul_(std * math.sqrt(2.0))
+    return w
+
+
+def init_weights(module: nn.Module, generator: torch.Generator | None = None) -> None:
+    """Initialize every conv as the JAX package does: he-normal kernels, zero biases.
+
+    Modules that need another init (``FCNHead.conv_seg``) override it after.
+    """
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            he_normal_(m.weight, generator)
+            if m.bias is not None:
+                with torch.no_grad():
+                    m.bias.zero_()
+
+
+class ConvModule(nn.Module):
+    """3x3 conv (no bias) -> BN -> ReLU, the mmcv ConvModule contract (NCHW)."""
+
+    def __init__(self, in_channels: int, out_channels: int, dilation: int = 1):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=dilation,
+                              dilation=dilation, bias=False)
+        self.bn = BatchNorm2d(out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.bn(self.conv(x)))

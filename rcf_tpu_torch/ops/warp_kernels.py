@@ -1,0 +1,284 @@
+"""The AMD loss's warp and splat kernels: CUDA build, ctypes binding, wrappers.
+
+Three hand-written CUDA kernels (``csrc/warp.cu``) replace the TPU kernels
+of ``rcf_tpu/ops/pallas/warp_pallas.py`` that the AMD training step runs:
+
+* ``warp_fwd``  <- ``_warp_fwd_kernel``: bilinear sample of ``img``
+  [B,H,W,C] at absolute f32 coordinates ``cx``, ``cy`` [B,H,W] with
+  ``grid_sample(align_corners=True, padding_mode="zeros")`` semantics
+  (out-of-image taps weigh 0; "border" is the caller clamping first);
+* ``warp_bwd``  <- ``_warp_bwd_kernel_nodimg``: ``dcx``, ``dcy`` from the
+  output cotangent, forward recomputed, derivative 0 at exact-integer
+  coordinates (the TPU kernel's ``_dhat``); no image cotangent;
+* ``splat``     <- ``_splat_kernel``: forward bilinear splat of ones at
+  ``(tx, ty)`` into an f32 density, out-of-range corners dropped.
+
+Beside each kernel is its plain PyTorch version (``*_plain``), the same
+function in tensor code. A wrapper takes the plain version only for a
+tensor on the CPU; on a CUDA tensor it launches the kernel or raises.
+Each wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel.
+
+Build: ``nvcc`` compiles ``csrc/warp.cu`` for ``sm_90a`` into a shared
+library with a plain C interface, under ``rcf_tpu_torch/build/``, named by
+a hash of the sources and flags, at the first launch (or ``build()``).
+No PyTorch headers, no ninja: a few seconds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "build")
+SOURCES = ("warp.cu",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+LAUNCHES = {"warp_fwd": 0, "warp_bwd": 0, "splat": 0}
+
+_lib: ctypes.CDLL | None = None
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    cands = [shutil.which("nvcc")]
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(env):
+            cands.append(os.path.join(os.environ[env], "bin", "nvcc"))
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found (looked on PATH, $CUDA_HOME and /usr/local/cuda)")
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"librcf_warp_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the kernels if this source hash has not been built; returns the .so path.
+
+    The compiler's report (``-Xptxas -v``: registers, spills) is kept beside
+    the library as ``<name>.log``.
+    """
+    so = library_path()
+    if os.path.isfile(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with open(so[:-3] + ".log", "w") as f:
+        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, so)
+    return so
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        for name in ("rcf_warp_fwd_f32", "rcf_warp_fwd_bf16"):
+            fn = getattr(lib, name)
+            fn.argtypes = [p, p, p, p, i64, i32, i32, i32, p]
+            fn.restype = i32
+        for name in ("rcf_warp_bwd_f32", "rcf_warp_bwd_bf16"):
+            fn = getattr(lib, name)
+            fn.argtypes = [p, p, p, p, p, p, i64, i32, i32, i32, p]
+            fn.restype = i32
+        lib.rcf_splat.argtypes = [p, p, p, i64, i64, i32, i32, p]
+        lib.rcf_splat.restype = i32
+        _lib = lib
+    return _lib
+
+
+def _check_launch(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_device(name: str, *ts: torch.Tensor) -> str:
+    dev = ts[0].device
+    if any(t.device != dev for t in ts):
+        raise ValueError(f"{name}: tensors on different devices")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev.type
+
+
+def _check_warp(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor) -> None:
+    if img.dim() != 4 or img.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"img must be [B,H,W,C] float32/bfloat16, got {tuple(img.shape)} {img.dtype}")
+    if cx.shape != img.shape[:3] or cy.shape != img.shape[:3]:
+        raise ValueError(f"cx/cy must be {tuple(img.shape[:3])}, got {tuple(cx.shape)}, {tuple(cy.shape)}")
+    if cx.dtype != torch.float32 or cy.dtype != torch.float32:
+        raise ValueError("cx/cy must be float32")
+
+
+# ---------------------------------------------------------------- plain versions
+
+def _taps(x: torch.Tensor, y: torch.Tensor, h: int, w: int):
+    """Tap offsets, validity and fractions of a bilinear sample at (x, y)."""
+    xf, yf = torch.floor(x), torch.floor(y)
+    ax, ay = x - xf, y - yf
+    vx0 = (xf >= 0) & (xf <= w - 1)
+    vx1 = (xf >= -1) & (xf <= w - 2)
+    vy0 = (yf >= 0) & (yf <= h - 1)
+    vy1 = (yf >= -1) & (yf <= h - 2)
+    xi = torch.where(vx0 | vx1, xf, torch.zeros_like(xf)).long()
+    yi = torch.where(vy0 | vy1, yf, torch.zeros_like(yf)).long()
+    o00 = yi * w + xi
+    offs = (o00, o00 + 1, o00 + w, o00 + w + 1)
+    valid = (vy0 & vx0, vy0 & vx1, vy1 & vx0, vy1 & vx1)
+    return offs, valid, ax, ay
+
+
+def _gather4(img: torch.Tensor, offs, valid):
+    """The four tap values [B,H,W,C] f32 each, 0 where the tap is outside."""
+    b, h, w, c = img.shape
+    flat = img.reshape(b, h * w, c)
+    vals = []
+    for off, ok in zip(offs, valid):
+        idx = off.clamp(0, h * w - 1).reshape(b, -1, 1).expand(-1, -1, c)
+        v = torch.gather(flat, 1, idx).reshape(b, h, w, c).float()
+        vals.append(torch.where(ok[..., None], v, torch.zeros_like(v)))
+    return vals
+
+
+def warp_fwd_plain(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor) -> torch.Tensor:
+    h, w = img.shape[1:3]
+    offs, valid, ax, ay = _taps(cx, cy, h, w)
+    v00, v01, v10, v11 = _gather4(img, offs, valid)
+    ax, ay = ax[..., None], ay[..., None]
+    top = v00 * (1 - ax) + v01 * ax
+    bot = v10 * (1 - ax) + v11 * ax
+    return (top * (1 - ay) + bot * ay).to(img.dtype)
+
+
+def warp_bwd_plain(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
+                   g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    h, w = img.shape[1:3]
+    offs, valid, ax, ay = _taps(cx, cy, h, w)
+    v00, v01, v10, v11 = _gather4(img, offs, valid)
+    gf = g.float()
+    axe, aye = ax[..., None], ay[..., None]
+    sx = (gf * ((1 - aye) * (v01 - v00) + aye * (v11 - v10))).sum(-1)
+    sy = (gf * ((1 - axe) * (v10 - v00) + axe * (v11 - v01))).sum(-1)
+    zero = torch.zeros_like(sx)
+    return torch.where(ax == 0, zero, sx), torch.where(ay == 0, zero, sy)
+
+
+def splat_plain(tx: torch.Tensor, ty: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    b = tx.shape[0]
+    offs, valid, ax, ay = _taps(tx, ty, h, w)
+    weights = ((1 - ay) * (1 - ax), (1 - ay) * ax, ay * (1 - ax), ay * ax)
+    out = torch.zeros(b, h * w, dtype=torch.float32, device=tx.device)
+    for off, ok, wt in zip(offs, valid, weights):
+        out.scatter_add_(1, off.clamp(0, h * w - 1).reshape(b, -1),
+                         torch.where(ok, wt, torch.zeros_like(wt)).reshape(b, -1))
+    return out.reshape(b, h, w)
+
+
+# ---------------------------------------------------------------- wrappers
+
+def warp_fwd(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of img [B,H,W,C] at absolute cx, cy [B,H,W] -> [B,H,W,C]."""
+    _check_warp(img, cx, cy)
+    if _check_device("warp_fwd", img, cx, cy) == "cpu":
+        return warp_fwd_plain(img, cx, cy)
+    img, cx, cy = img.contiguous(), cx.contiguous(), cy.contiguous()
+    out = torch.empty_like(img)
+    b, h, w, c = img.shape
+    lib = _load()
+    fn = lib.rcf_warp_fwd_f32 if img.dtype == torch.float32 else lib.rcf_warp_fwd_bf16
+    with torch.cuda.device(img.device):
+        err = fn(img.data_ptr(), cx.data_ptr(), cy.data_ptr(), out.data_ptr(),
+                 b * h * w, h, w, c, _stream(img))
+    _check_launch(err, "warp_fwd")
+    LAUNCHES["warp_fwd"] += 1
+    return out
+
+
+def warp_bwd(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
+             g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """d(sum g * warp_fwd(img, cx, cy)) / d(cx, cy), each [B,H,W] f32."""
+    _check_warp(img, cx, cy)
+    if g.shape != img.shape:
+        raise ValueError(f"g must be {tuple(img.shape)}, got {tuple(g.shape)}")
+    g = g.to(img.dtype)
+    if _check_device("warp_bwd", img, cx, cy, g) == "cpu":
+        return warp_bwd_plain(img, cx, cy, g)
+    img, cx, cy, g = img.contiguous(), cx.contiguous(), cy.contiguous(), g.contiguous()
+    dcx = torch.empty_like(cx)
+    dcy = torch.empty_like(cy)
+    b, h, w, c = img.shape
+    lib = _load()
+    fn = lib.rcf_warp_bwd_f32 if img.dtype == torch.float32 else lib.rcf_warp_bwd_bf16
+    with torch.cuda.device(img.device):
+        err = fn(img.data_ptr(), cx.data_ptr(), cy.data_ptr(), g.data_ptr(), dcx.data_ptr(),
+                 dcy.data_ptr(), b * h * w, h, w, c, _stream(img))
+    _check_launch(err, "warp_bwd")
+    LAUNCHES["warp_bwd"] += 1
+    return dcx, dcy
+
+
+def splat(tx: torch.Tensor, ty: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Splat ones at (tx, ty) [B,Hs,Ws] f32 into a density [B,h,w] f32."""
+    if tx.dim() != 3 or tx.shape != ty.shape:
+        raise ValueError(f"tx/ty must be one [B,H,W] shape, got {tuple(tx.shape)}, {tuple(ty.shape)}")
+    if tx.dtype != torch.float32 or ty.dtype != torch.float32:
+        raise ValueError("tx/ty must be float32")
+    if _check_device("splat", tx, ty) == "cpu":
+        return splat_plain(tx, ty, h, w)
+    tx, ty = tx.contiguous(), ty.contiguous()
+    b, sh, sw = tx.shape
+    out = torch.zeros(b, h, w, dtype=torch.float32, device=tx.device)
+    with torch.cuda.device(tx.device):
+        err = _load().rcf_splat(tx.data_ptr(), ty.data_ptr(), out.data_ptr(),
+                                b * sh * sw, sh * sw, h, w, _stream(tx))
+    _check_launch(err, "splat")
+    LAUNCHES["splat"] += 1
+    return out
+
+
+class _WarpNoImageGrad(torch.autograd.Function):
+    """warp_fwd with warp_bwd as its backward: gradients reach cx, cy only."""
+
+    @staticmethod
+    def forward(ctx, img, cx, cy):
+        ctx.save_for_backward(img, cx, cy)
+        return warp_fwd(img, cx, cy)
+
+    @staticmethod
+    def backward(ctx, g):
+        img, cx, cy = ctx.saved_tensors
+        dcx, dcy = warp_bwd(img, cx, cy, g)
+        return None, dcx, dcy
+
+
+def warp_no_image_grad(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor) -> torch.Tensor:
+    """Differentiable in (cx, cy); the image is data and gets no gradient."""
+    return _WarpNoImageGrad.apply(img, cx, cy)

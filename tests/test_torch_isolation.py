@@ -1,0 +1,71 @@
+"""The port stands alone: no JAX, no rcf_tpu, no yaml/cv2/PIL; no silent CPU fallback.
+
+The machine with the card has torch and numpy but none of the JAX
+package's dependencies, so every module of ``rcf_tpu_torch`` and
+``chip_smoke`` must import with those blocked.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = textwrap.dedent("""
+    import importlib, importlib.abc, pkgutil, sys
+
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "cv2", "PIL", "rcf_tpu")
+
+    def blocked(name):
+        return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
+    class Blocker(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if blocked(name):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    for name in [m for m in sys.modules if blocked(m)]:
+        del sys.modules[name]
+    sys.meta_path.insert(0, Blocker())
+
+    import rcf_tpu_torch
+    names = ["chip_smoke"] + [m.name for m in pkgutil.walk_packages(
+        rcf_tpu_torch.__path__, "rcf_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    leaked = sorted(m for m in sys.modules if blocked(m))
+    assert not leaked, leaked
+    print(len(names))
+""")
+
+
+def test_port_imports_without_jax_and_its_dependencies():
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split()[-1]) >= 20  # every module of the package was imported
+
+
+def test_entry_points_need_a_card_unless_given_cpu(monkeypatch):
+    from rcf_tpu_torch.models.amd import build_amd_model
+
+    kwargs = {
+        "mask_layer": 5, "flow_size": (64, 64),
+        "backbone2": {"depth": 18, "strides": [1, 2, 1, 1], "dilations": [1, 1, 1, 2]},
+        "decode_head2": {"in_index": 3, "channels": 8, "num_convs": 1, "num_classes": 5,
+                         "concat_input": False},
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_amd_model(kwargs)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_amd_model(kwargs, device="cuda")
+    model = build_amd_model(kwargs, device="cpu")
+    assert next(model.parameters()).device.type == "cpu"

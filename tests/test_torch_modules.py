@@ -1,0 +1,245 @@
+"""The port's modules against the JAX package, on the CPU, from the same weights.
+
+Flax variables are drawn with numpy in the shapes JAX reports, handed to
+the port through ``rcf_tpu_torch.convert``, and both frameworks run the
+same numpy inputs (JAX jitted). Dropout is 0: the two frameworks
+draw different random bits.
+"""
+
+from __future__ import annotations
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rcf_tpu.losses import unflow as junflow
+from rcf_tpu.models.amd import build_amd_model as jax_build_amd_model
+from rcf_tpu.models.amd.pwc_lite import PWCLite as JaxPWCLite
+from rcf_tpu.nn import FCNHead as JaxFCNHead
+from rcf_tpu.nn import ResNet as JaxResNet
+from rcf_tpu.ops import resize_bilinear as jax_resize_bilinear
+from rcf_tpu.ops import resize_nearest as jax_resize_nearest
+from rcf_tpu_torch import convert
+from rcf_tpu_torch.losses import unflow as tunflow
+from rcf_tpu_torch.models.amd import build_amd_model
+from rcf_tpu_torch.models.amd.pwc_lite import PWCLite
+from rcf_tpu_torch.nn import FCNHead, ResNet
+from rcf_tpu_torch.ops import resize_bilinear, resize_nearest
+from torch_parity import assert_close, init_variables, to_torch
+
+# f32 convolutions in both frameworks, summed in other orders through up to
+# ~50 layers: the error is measured against the output's own scale. Eval
+# mode stays within ~2e-6 of it through ResNet-50. Train-mode BN over the
+# few samples per channel of a small input amplifies that noise layer by
+# layer (measured: 5e-6 after stage 1, 1.4e-4 after stage 4).
+REL = 1e-5
+REL_TRAIN = 1e-3
+
+AMD_BACKBONE = {"depth": 50, "num_stages": 4, "out_indices": [0, 1, 2, 3],
+                "strides": [1, 2, 1, 1], "dilations": [1, 1, 1, 2],
+                "contract_dilation": False}
+
+
+def _np(x):
+    return np.asarray(x)
+
+
+@pytest.mark.parametrize("align", [False, True])
+@pytest.mark.parametrize("out_hw", [(13, 29), (5, 7)])
+def test_resize_bilinear_matches_jax(align, out_hw):
+    x = np.random.default_rng(0).standard_normal((2, 9, 11, 3)).astype(np.float32)
+    ref = _np(jax_resize_bilinear(jnp.asarray(x), out_hw, align_corners=align))
+    np.testing.assert_allclose(resize_bilinear(to_torch(x), out_hw, align).numpy(), ref,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("out_hw", [(18, 22), (4, 5)])
+def test_resize_nearest_matches_jax(out_hw):
+    x = np.random.default_rng(1).standard_normal((2, 9, 11, 2)).astype(np.float32)
+    ref = _np(jax_resize_nearest(jnp.asarray(x), out_hw))
+    np.testing.assert_array_equal(resize_nearest(to_torch(x), out_hw).numpy(), ref)
+
+
+def test_resnet50_matches_jax():
+    x = np.random.default_rng(0).standard_normal((2, 32, 32, 3)).astype(np.float32)
+    jnet = JaxResNet(**AMD_BACKBONE)
+    v = init_variables(jnet, jnp.asarray(x), train=False)
+    tnet = ResNet(**AMD_BACKBONE)
+    tnet.load_state_dict(convert.resnet_state_from_jax(v["params"], v["batch_stats"]))
+
+    ref_eval = jax.jit(lambda v, x: jnet.apply(v, x, train=False))(v, jnp.asarray(x))
+    tnet.eval()
+    with torch.no_grad():
+        ours_eval = tnet(to_torch(x))
+    for a, b in zip(ours_eval, ref_eval):
+        assert_close(a.numpy(), _np(b), REL)
+
+    ref_train, new_vars = jax.jit(
+        lambda v, x: jnet.apply(v, x, train=True, mutable=["batch_stats"]))(v, jnp.asarray(x))
+    tnet.train()
+    with torch.no_grad():
+        ours_train = tnet(to_torch(x))
+    for a, b in zip(ours_train, ref_train):
+        assert_close(a.numpy(), _np(b), rel=REL_TRAIN)
+    # Running statistics updated as Flax does (biased batch variance).
+    new_sd = convert.resnet_state_from_jax(v["params"], new_vars["batch_stats"])
+    for k, t in tnet.state_dict().items():
+        assert_close(t.numpy(), new_sd[k].numpy(), rel=REL_TRAIN, msg=k)
+
+
+def test_fcn_head_matches_jax():
+    rng = np.random.default_rng(1)
+    feats = [rng.standard_normal((2, 8, 8, c)).astype(np.float32) for c in (4, 6, 8, 24)]
+    cfg = dict(num_classes=5, channels=16, num_convs=2, dilation=6, dropout_ratio=0.0,
+               in_index=3, concat_input=False)
+    jhead = JaxFCNHead(**cfg)
+    jfeats = [jnp.asarray(f) for f in feats]
+    v = init_variables(jhead, jfeats, train=False)
+    thead = FCNHead(in_channels=24, **cfg)
+    thead.load_state_dict(convert.fcn_head_state_from_jax(v["params"], v["batch_stats"]))
+    tfeats = [to_torch(f) for f in feats]
+    for train in (False, True):
+        ref = jhead.apply(v, jfeats, train=train, mutable=["batch_stats"])[0]
+        thead.train(train)
+        with torch.no_grad():
+            ours = thead(tfeats)
+        assert_close(ours.numpy(), _np(ref), REL_TRAIN if train else REL)
+
+
+def _pwc_inputs(seed=0, b=2, hw=(64, 96), mhw=(8, 12)):
+    rng = np.random.default_rng(seed)
+    im1, im2 = (rng.random((b, *hw, 3)).astype(np.float32) for _ in range(2))
+    logits = rng.standard_normal((2, b, *mhw, 5)).astype(np.float32)
+    masks = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    return im1, im2, masks[0], masks[1]
+
+
+def test_pwc_lite_matches_jax():
+    inputs = _pwc_inputs()
+    jnet = JaxPWCLite(mask_layer=5)
+    jin = [jnp.asarray(a) for a in inputs]
+    v = init_variables(jnet, *jin)
+    ref = jax.jit(jnet.apply)(v, *jin)
+    tnet = PWCLite(mask_layer=5)
+    tnet.load_state_dict(convert.pwc_lite_state_from_jax(v["params"]))
+    with torch.no_grad():
+        ours = tnet(*(to_torch(a) for a in inputs))
+    assert set(ours) == set(ref)
+    for key in ref:
+        assert len(ours[key]) == len(ref[key])
+        for a, b in zip(ours[key], ref[key]):
+            assert_close(a.numpy(), _np(b), REL, msg=key)
+
+
+def _flow_pyramid(seed=0, b=2, sizes=((64, 96), (32, 48), (16, 24), (8, 12), (4, 8))):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal((b, h, w, 4)) * 2.5).astype(np.float32) for h, w in sizes]
+
+
+_CFGS = {
+    "amd": junflow.UnFlowLossCfg(alpha=10, w_scales=(1.0, 1.0, 1.0, 1.0, 0.0),
+                                 w_sm_scales=(1.0, 0.0, 0.0, 0.0, 0.0)),
+    "smooth_ternary": junflow.UnFlowLossCfg(w_ternary=0.5, w_real_smooth=0.1, smooth_2nd=False),
+    "smooth2_zeros": junflow.UnFlowLossCfg(w_real_smooth=0.1, smooth_2nd=True, warp_pad="zeros"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_CFGS))
+def test_unflow_loss_and_flow_grads_match_jax(name):
+    jcfg = _CFGS[name]
+    tcfg = tunflow.UnFlowLossCfg(**jcfg.__dict__)
+    rng = np.random.default_rng(5)
+    im1, im2 = (rng.random((2, 64, 96, 3)).astype(np.float32) for _ in range(2))
+    flows = _flow_pyramid()
+
+    def jloss(fl):
+        return junflow.unflow_loss(fl, jnp.asarray(im1), jnp.asarray(im2), jcfg)
+
+    (_, ref), ref_grads = jax.jit(jax.value_and_grad(lambda fl: (jloss(fl)[0], jloss(fl)),
+                                                     has_aux=True))([jnp.asarray(f) for f in flows])
+
+    tflows = [to_torch(f).requires_grad_(True) for f in flows]
+    ours = tunflow.unflow_loss(tflows, to_torch(im1), to_torch(im2), tcfg)
+    ours[0].backward()
+    for a, b in zip(ours, ref):
+        np.testing.assert_allclose(float(torch.as_tensor(a).detach()), float(b), rtol=1e-5,
+                                   atol=1e-7)
+    for t, g, w in zip(tflows, ref_grads, jcfg.w_scales):
+        if w == 0:  # an unweighted level never enters the graph
+            assert t.grad is None and not np.any(_np(g))
+        else:
+            assert_close(t.grad.numpy(), _np(g), rel=1e-4)
+
+
+def test_loss_pieces_match_jax():
+    rng = np.random.default_rng(2)
+    x, y = (rng.random((2, 12, 16, 3)).astype(np.float32) for _ in range(2))
+    flow = rng.standard_normal((2, 12, 16, 2)).astype(np.float32)
+    jx, jy, jf = jnp.asarray(x), jnp.asarray(y), jnp.asarray(flow)
+    tx, ty, tf = to_torch(x), to_torch(y), to_torch(flow)
+    pairs = [
+        (tunflow.area_resize(tx, (6, 8)), junflow.area_resize(jx, (6, 8))),
+        (tunflow.ssim_dist(tx, ty), junflow.ssim_dist(jx, jy)),
+        (tunflow.ternary_dist(tx, ty), junflow.ternary_dist(jx, jy)),
+        (tunflow.smooth_grad_1st(tf, tx, 10.0), junflow.smooth_grad_1st(jf, jx, 10.0)),
+        (tunflow.smooth_grad_2nd(tf, tx, 10.0), junflow.smooth_grad_2nd(jf, jx, 10.0)),
+    ]
+    for a, b in pairs:
+        np.testing.assert_allclose(a.numpy(), _np(b), rtol=1e-5, atol=1e-6)
+
+
+def _amd_kwargs(flow_size=(64, 96)):
+    return {
+        "w_seg": 1.0, "mask_layer": 5, "flow_size": flow_size,
+        "backbone2": dict(AMD_BACKBONE, type="ResNet"),
+        "decode_head2": {"type": "FCNHead", "in_channels": 2048, "in_index": 3,
+                         "channels": 32, "num_convs": 2, "dilation": 6,
+                         "dropout_ratio": 0.0, "num_classes": 5, "concat_input": False},
+    }
+
+
+def test_amd_forward_losses_match_jax():
+    imgs = np.random.default_rng(4).standard_normal((1, 2, 48, 48, 3)).astype(np.float32)
+    mk = _amd_kwargs()
+    jmodel = jax_build_amd_model(mk)
+    v = init_variables(jmodel, jnp.asarray(imgs), train=True)
+    (jlosses, jprobs), _ = jax.jit(
+        lambda v, x: jmodel.apply(v, x, train=True, mutable=["batch_stats"]))(v, jnp.asarray(imgs))
+    jeval = jax.jit(lambda v, x: jmodel.apply(v, x, train=False, method=jmodel.mask_probs))(
+        v, jnp.asarray(imgs[:, 0]))
+
+    model = build_amd_model(mk, device="cpu")
+    model.load_state_dict(convert.torch_state_from_jax(v))
+    with torch.no_grad():
+        model.eval()  # before the train-mode forward moves the running statistics
+        probs_eval = model.mask_probs(to_torch(imgs[:, 0]))
+        model.train()
+        losses, probs = model(to_torch(imgs))
+    assert set(losses) == set(jlosses)
+    for k in losses:
+        np.testing.assert_allclose(float(losses[k]), float(jlosses[k]), rtol=1e-4, err_msg=k)
+    assert_close(probs.numpy(), _np(jprobs), rel=REL_TRAIN)
+    assert_close(probs_eval.numpy(), _np(jeval), REL)
+
+
+def test_amd_yaml_builds_the_same_model_at_full_width():
+    """configs/amd/amd.yaml's model_kwargs give both frameworks one parameter set."""
+    import yaml
+
+    cfg_path = os.path.join(os.path.dirname(__file__), "..", "configs", "amd", "amd.yaml")
+    with open(cfg_path) as f:
+        mk = yaml.safe_load(f)["model_kwargs"]
+    imgs = jnp.zeros((1, 2, 64, 64, 3), jnp.float32)
+    jmodel = jax_build_amd_model(mk)
+    shapes = jax.eval_shape(
+        lambda key: jmodel.init({"params": key, "dropout": key}, imgs, train=True),
+        jax.random.PRNGKey(0))
+    zeros = jax.tree_util.tree_map(lambda sd: np.zeros(sd.shape, np.float32), shapes)
+    model = build_amd_model(mk, device="cpu")
+    model.load_state_dict(convert.torch_state_from_jax(zeros))  # strict: same keys, shapes
+    n_jax = sum(x.size for x in jax.tree_util.tree_leaves(zeros["params"]))
+    assert sum(p.numel() for p in model.parameters()) == n_jax

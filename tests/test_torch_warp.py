@@ -1,0 +1,215 @@
+"""The port's warp and splat against the JAX package, on the CPU.
+
+On the CPU the port's wrappers run their kernels' plain PyTorch versions;
+the JAX side runs the Pallas kernels in interpret mode and the plain
+gather / dense references. Inputs come from numpy with a seed and go to
+both frameworks. Coordinates are non-integer: at an exact integer the
+TPU kernel's hat derivative is 0 while a gather's is one-sided
+(``tests/test_warp_pallas.py``). The kernel-vs-plain cases need a card and
+skip without one.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rcf_tpu.ops import warp as jwarp
+from rcf_tpu.ops.pallas.warp_pallas import splat_pallas, warp_pallas
+from rcf_tpu_torch.ops import warp as twarp
+from rcf_tpu_torch.ops import warp_kernels as wk
+
+B, H, W, C = 2, 128, 384, 3
+
+# Same 4-tap arithmetic in f32 on both sides, values in [0, 1).
+TOL_VALUES = 1e-5
+# Coordinate gradients: f32 sums of O(1) products over 3 channels.
+TOL_GRADS = 1e-4
+# Splat densities: f32 sums of up to a few dozen weights in another order.
+TOL_SPLAT = 1e-5
+
+
+def _img(shape, seed=0):
+    return np.random.default_rng(seed).random(shape).astype(np.float32)
+
+
+def _flow(shape, scale, seed=2):
+    return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
+
+
+def _coords(flow):
+    b, h, w, _ = flow.shape
+    ys, xs = np.meshgrid(np.arange(h, dtype=np.float32), np.arange(w, dtype=np.float32),
+                         indexing="ij")
+    return xs[None] + flow[..., 0], ys[None] + flow[..., 1]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("pad", ["border", "zeros"])
+def test_warp_fwd_matches_pallas(pad):
+    img = _img((B, H, W, C))
+    cx, cy = _coords(_flow((B, H, W, 2), 5.0 if pad == "border" else 9.0))
+    if pad == "border":
+        cx, cy = np.clip(cx, 0, W - 1), np.clip(cy, 0, H - 1)
+    ref = np.asarray(warp_pallas(jnp.asarray(img), jnp.asarray(cx), jnp.asarray(cy), True))
+    ours = wk.warp_fwd(torch.from_numpy(img), torch.from_numpy(cx), torch.from_numpy(cy))
+    np.testing.assert_allclose(ours.numpy(), ref, atol=TOL_VALUES)
+
+
+def test_warp_coordinate_grads_match_pallas():
+    img = _img((B, H, W, C))
+    flow = _flow((B, H, W, 2), 5.0)
+    wgt = _img((B, H, W, C), seed=5) - 0.5
+    ys, xs = jnp.meshgrid(jnp.arange(H, dtype=jnp.float32), jnp.arange(W, dtype=jnp.float32),
+                          indexing="ij")
+
+    def jloss(f):
+        cx = jnp.clip(xs[None] + f[..., 0], 0, W - 1)
+        cy = jnp.clip(ys[None] + f[..., 1], 0, H - 1)
+        out = warp_pallas(jnp.asarray(img), cx, cy, True, False)
+        return jnp.sum(out * wgt)
+
+    jl, jg = jax.value_and_grad(jloss)(jnp.asarray(flow))
+
+    tf = torch.from_numpy(flow).requires_grad_(True)
+    timg = torch.from_numpy(img).requires_grad_(True)
+    out = twarp.flow_warp(timg, tf, pad="border", grad_img=False)
+    tl = (out * torch.from_numpy(wgt)).sum()
+    tl.backward()
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
+    np.testing.assert_allclose(tf.grad.numpy(), np.asarray(jg), atol=TOL_GRADS)
+    assert timg.grad is None  # grad_img=False: the image is data
+
+
+@pytest.mark.parametrize("pad", ["border", "zeros"])
+@pytest.mark.parametrize("c", [3, 12])
+def test_flow_warp_matches_jax_at_odd_sizes(pad, c):
+    """C=3 runs the kernel route (plain here), C=12 the grid_sample route."""
+    shape = (2, 7, 9, c)
+    img = _img(shape)
+    flow = _flow((2, 7, 9, 2), 3.0)
+    wgt = _img(shape, seed=4) - 0.5
+    grad_img = c > 8
+
+    def jloss(im, f):
+        return jnp.sum(jwarp.flow_warp(im, f, pad=pad, grad_img=grad_img) * wgt)
+
+    jl, (jgi, jgf) = jax.value_and_grad(jloss, argnums=(0, 1))(jnp.asarray(img), jnp.asarray(flow))
+    ti = torch.from_numpy(img).requires_grad_(True)
+    tf = torch.from_numpy(flow).requires_grad_(True)
+    tl = (twarp.flow_warp(ti, tf, pad=pad, grad_img=grad_img) * torch.from_numpy(wgt)).sum()
+    tl.backward()
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
+    # grid_sample normalizes coordinates by W-1 and back: ~1e-6 px of rounding.
+    np.testing.assert_allclose(tf.grad.numpy(), np.asarray(jgf), atol=TOL_GRADS)
+    if grad_img:
+        np.testing.assert_allclose(ti.grad.numpy(), np.asarray(jgi), atol=TOL_GRADS)
+
+
+@pytest.mark.parametrize("pad", ["border", "zeros"])
+def test_bilinear_sample_matches_jax(pad):
+    img = _img((2, 9, 11, 2))
+    cx, cy = _coords(_flow((2, 9, 11, 2), 4.0))
+    wgt = _img((2, 9, 11, 2), seed=7) - 0.5
+
+    def jloss(im, x, y):
+        return jnp.sum(jwarp.bilinear_sample(im, x, y, pad=pad) * wgt)
+
+    jl, jgs = jax.value_and_grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(img), jnp.asarray(cx), jnp.asarray(cy))
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in (img, cx, cy)]
+    tl = (twarp.bilinear_sample(*ts, pad=pad) * torch.from_numpy(wgt)).sum()
+    tl.backward()
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
+    for t, g in zip(ts, jgs):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), atol=TOL_GRADS)
+
+
+@pytest.mark.parametrize("scale", [3.0, 12.0])
+def test_splat_matches_pallas(scale):
+    tx, ty = _coords(_flow((B, H, W, 2), scale))
+    ref = np.asarray(splat_pallas(jnp.asarray(tx), jnp.asarray(ty), H, W, interpret=True))
+    ours = wk.splat(torch.from_numpy(tx), torch.from_numpy(ty), H, W)
+    np.testing.assert_allclose(ours.numpy(), ref, atol=TOL_SPLAT)
+
+
+@pytest.mark.parametrize("shape", [(2, 12, 14), (3, 33, 47)])
+def test_corresponding_map_matches_dense(shape):
+    flow = _flow((*shape, 2), 4.0, seed=1)
+    ref = np.asarray(jwarp._corresponding_map_dense(jnp.asarray(flow)))
+    ours = twarp.corresponding_map(torch.from_numpy(flow))
+    np.testing.assert_allclose(ours.numpy(), ref, atol=TOL_SPLAT)
+
+
+def test_occu_mask_backward_matches_jax():
+    flow = _flow((2, 40, 56, 2), 4.0, seed=3)
+    dens = np.asarray(jwarp._corresponding_map_dense(jnp.asarray(flow)))
+    ref = np.asarray(jwarp.occu_mask_backward(jnp.asarray(flow), th=0.2))
+    ours = twarp.occu_mask_backward(torch.from_numpy(flow), th=0.2).numpy()
+    # Equal wherever the density is not within float noise of the threshold.
+    clear = np.abs(np.clip(dens, 0, 1) - 0.2) > 1e-5
+    assert clear.mean() > 0.99
+    np.testing.assert_array_equal(ours[clear], ref[clear])
+
+
+def test_correlation_matches_jax():
+    x1 = np.random.default_rng(0).standard_normal((2, 9, 10, 6)).astype(np.float32)
+    x2 = np.random.default_rng(1).standard_normal((2, 9, 10, 6)).astype(np.float32)
+    ref = np.asarray(jwarp.correlation(jnp.asarray(x1), jnp.asarray(x2), 4))
+    ours = twarp.correlation(torch.from_numpy(x1), torch.from_numpy(x2), 4)
+    np.testing.assert_allclose(ours.numpy(), ref, atol=1e-6)
+
+
+def test_cpu_wrappers_run_plain_versions_without_launching():
+    img = torch.from_numpy(_img((1, 8, 8, 3)))
+    cx, cy = (torch.from_numpy(a) for a in _coords(_flow((1, 8, 8, 2), 2.0)))
+    wk.reset_launch_counts()
+    torch.testing.assert_close(wk.warp_fwd(img, cx, cy), wk.warp_fwd_plain(img, cx, cy),
+                               rtol=0, atol=0)
+    wk.warp_bwd(img, cx, cy, img)
+    wk.splat(cx, cy, 8, 8)
+    assert wk.LAUNCHES == {"warp_fwd": 0, "warp_bwd": 0, "splat": 0}
+
+
+def test_wrappers_reject_unsupported_inputs():
+    img = torch.zeros(1, 8, 8, 3)
+    cx = torch.zeros(1, 8, 8)
+    with pytest.raises(ValueError):
+        wk.warp_fwd(img.double(), cx, cx)
+    with pytest.raises(ValueError):
+        wk.warp_fwd(img, cx[:, :4], cx)
+    with pytest.raises(ValueError):
+        wk.splat(cx.half(), cx.half(), 8, 8)
+    with pytest.raises(ValueError):  # no silent fallback for another device
+        wk.warp_fwd(img.to("meta"), cx.to("meta"), cx.to("meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_warp_kernels_match_plain_on_card(cuda, dtype, tol):
+    img = torch.from_numpy(_img((B, H, W, C))).to(cuda, dtype)
+    cx, cy = (torch.from_numpy(a).to(cuda) for a in _coords(_flow((B, H, W, 2), 9.0)))
+    out = wk.warp_fwd(img, cx, cy)
+    torch.cuda.synchronize()
+    assert (out.float() - wk.warp_fwd_plain(img, cx, cy).float()).abs().max() <= tol
+    g = torch.from_numpy(_img((B, H, W, C), seed=9) - 0.5).to(cuda, dtype)
+    for k, p in zip(wk.warp_bwd(img, cx, cy, g), wk.warp_bwd_plain(img, cx, cy, g)):
+        torch.cuda.synchronize()
+        assert (k - p).abs().max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_splat_kernel_matches_plain_on_card(cuda):
+    tx, ty = (torch.from_numpy(a).to(cuda) for a in _coords(_flow((B, H, W, 2), 6.0)))
+    dens = wk.splat(tx, ty, H, W)
+    torch.cuda.synchronize()
+    assert (dens - wk.splat_plain(tx, ty, H, W)).abs().max() <= 1e-4
