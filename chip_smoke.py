@@ -5,23 +5,33 @@
 
 Phases, each timed:
 
-1. build     - compile ``rcf_tpu_torch/csrc/*.cu`` with nvcc (sm_90a) into
-               ``rcf_tpu_torch/build/``;
-2. kernels   - each kernel against its plain PyTorch version on the card, at
-               the AMD level-0 shapes (B=8, 384x640), images in f32 and bf16;
-3. step      - three AMD training steps (ResNet-50 OS8 + FCN mask head +
-               PWC-Lite + unFlow loss, Adam) at batch 8 pairs of 384^2
-               frames, flow_size 384x640, random weights from a seed; every
-               kernel's launch count must rise and the losses be finite;
-4. reference - the AMD forward and a weight gradient at a small input, and
-               the unFlow loss and its flow gradient on seeded flows, on the
-               card against the port's plain CPU path (which the tests hold
-               to the JAX package), TF32 off;
-5. timing    - each kernel, its plain version and a PyTorch library call at
-               the level-0 shape, with CUDA events.
+1. build      - compile ``rcf_tpu_torch/csrc/*.cu`` with nvcc (sm_90a) into
+                ``rcf_tpu_torch/build/``;
+2. kernels    - each kernel against its plain PyTorch version on the card, at
+                the AMD level-0 shapes (B=8, 384x640), images in f32 and bf16;
+3. step       - three AMD training steps (ResNet-50 OS8 + FCN mask head +
+                PWC-Lite + unFlow loss, Adam) at batch 8 pairs of 384^2
+                frames, flow_size 384x640, random weights from a seed, in f32
+                (TF32 convolutions); the launch counts of the step's kernels
+                (warp_fwd, warp_bwd, splat) must rise and the losses be finite;
+4. step_bf16  - the same three steps with the compute dtype bf16 (the
+                recipe's ``tpu.compute_dtype: bfloat16``; f32 parameters, Adam
+                state and losses), with the same checks;
+5. image_grad - the gradient of a seeded scalar of ``flow_warp(flow21,
+                flow12, pad="zeros")`` (the flow warp of
+                ``occu_mask_bidirection``) in both flows at the level-0 shape,
+                which launches warp_bwd_dimg, and the bidirectional occlusion
+                mask, on the card against the port's CPU path;
+6. reference  - the AMD forward and a weight gradient at a small input; the
+                unFlow loss and its flow gradient on seeded flows, with the
+                backward-density and with the bidirectional occlusion masks;
+                and the bf16 AMD forward; on the card against the port's plain
+                CPU path (which the tests hold to the JAX package), TF32 off;
+7. timing     - each kernel, its plain version and a PyTorch library call at
+                the level-0 shape, with CUDA events.
 
-Prints a ``{"kernels": [...]}`` line, the card's name and power limit, the
-phase seconds, and as the last line
+Prints a ``{"kernels": [...]}`` line, the f32 and bf16 step times and the
+phase seconds, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed phase raises: the exit code is then not 0 and no result line is
 printed. Without a CUDA device, or without the package beside it, it exits
@@ -51,6 +61,12 @@ TOL = {
     # f32 sums over 3 channels of products of O(1) terms.
     ("warp_bwd", "float32"): 1e-4,
     ("warp_bwd", "bfloat16"): 1e-4,
+    # dimg: f32 atomics in a run-dependent order, |g| < 1, a few taps per pixel;
+    # dcx, dcy as warp_bwd (flow-valued C=2 maps reach |img| ~ 10: 1e-4 still).
+    ("warp_bwd_dimg", "float32"): 1e-4,
+    # bf16 dimg: both round an f32 sum (equal to ~1e-6) to bf16, so they are at
+    # most one bf16 ulp apart: 2^-4 for |dimg| < 16. dcx, dcy stay f32 (1e-4).
+    ("warp_bwd_dimg", "bfloat16"): 2.0**-4,
     # f32 atomics in an order that changes from run to run; densities O(1).
     ("splat", "float32"): 1e-4,
 }
@@ -66,13 +82,37 @@ TOL = {
 #   tools/smoke_fault_check.py plants in a kernel reads 1.2e-3 or more on
 #   the gradient (the smallest: the TPU kernel's zero derivative at exact
 #   integers dropped), and the limit sits between.
+# - the same unFlow loss with the bidirectional occlusion masks
+#   (occ_from_back=False), loss and flow gradient: sound runs read 0 and
+#   9.8e-7 on an H100; the planted warp faults read 2.9e-2 or more on the
+#   gradient (the dropped `_dhat` rule the least);
+# - the bf16 AMD forward (no backward) at flow_size 384x640: its loss, and
+#   the finest forward flow over its largest entry. cuDNN and the CPU round
+#   bf16 convolutions at other places, so these read bf16 noise: 1.4e-5 and
+#   1.6e-2 in sound runs. The loss limit catches the forward shift (1.2e-3)
+#   and the mirrored splat (1.4e-4); the flow limit only gross faults;
+# - a bf16 feature map (C=32) warped as PWC-Lite's finest level warps it
+#   (96x160): max abs error of the f32 result. Sound, f32 grids on both
+#   sides: ~1e-6; a bf16 grid is off by up to 0.3 px here.
+# tools/smoke_fault_check.py prints every reading for each planted fault.
 REF_LIMITS = {"loss_rel": 1e-3, "probs_err": 1e-3, "grad_rel": 1e-2,
-              "unflow_rel": 1e-4, "unflow_grad_rel": 1e-4}
+              "unflow_rel": 1e-4, "unflow_grad_rel": 1e-4,
+              "bidir_rel": 1e-4, "bidir_grad_rel": 1e-4,
+              "bf16_loss_rel": 1e-4, "bf16_flow_rel": 5e-2, "feat_warp_err": 1e-4}
+# Image-gradient phase, card vs CPU: the scalar, and its gradients in the
+# warped flow (the image cotangent, warp_bwd_dimg's dimg) and in the sampling
+# flow (dcx, dcy), each over its largest entry; f32 sums in another order.
+# Sound runs read 3.8e-8, 1.7e-7 and 1.2e-7 on an H100; dimg scattered to the
+# mirrored taps reads 1.77 on dimg, dimg without one corner 0.80, the forward
+# shift 5.0e-2 on the scalar.
+IMG_LIMITS = {"value_rel": 1e-5, "dimg_rel": 1e-5, "dflow_rel": 1e-4}
+STEP_KERNELS = ("warp_fwd", "warp_bwd", "splat")
 
 REPLACES = {
     "warp_fwd": "rcf_tpu/ops/pallas/warp_pallas.py:124",
     "warp_bwd": "rcf_tpu/ops/pallas/warp_pallas.py:220",
     "splat": "rcf_tpu/ops/pallas/warp_pallas.py:266",
+    "warp_bwd_dimg": "rcf_tpu/ops/pallas/warp_pallas.py:160",
 }
 
 
@@ -112,6 +152,11 @@ def level0_inputs(torch, dtype, gen, scale=5.0, b=B):
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def rel_max(a, b) -> float:
+    """max |a - b| over max |b|: an error against the quantity's own scale."""
+    return float((a - b).abs().max() / b.abs().max())
 
 
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -163,6 +208,7 @@ def phase_kernels(torch, wk) -> dict:
             raise RuntimeError(f"warp kernels disagree with their plain versions in {dn}")
         if dtype == torch.float32:
             errs["warp_fwd"], errs["warp_bwd"] = e_fwd, e_bwd
+    errs["warp_bwd_dimg"] = check_warp_bwd_dimg(torch, wk, gen)
     # The splat sees both flow directions batched: 2B maps.
     _, tx, ty = level0_inputs(torch, torch.float32, gen, b=2 * B)
     dens = wk.splat(tx, ty, H, W)
@@ -175,12 +221,43 @@ def phase_kernels(torch, wk) -> dict:
     return errs
 
 
-def phase_step(torch, wk) -> tuple[dict, float]:
-    """Three AMD training steps at full width; returns (launch counts, step ms)."""
+def check_warp_bwd_dimg(torch, wk, gen) -> float:
+    """warp_bwd_dimg vs its plain version: C=2 (a flow, as the system calls it)
+    and C=3, f32 and bf16, pad="zeros" (coordinates unclamped, some outside)
+    and "border" (clamped). Returns the largest f32 error."""
+    err_f32 = 0.0
+    for c in (2, 3):
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            fl = torch.randn(B, H, W, 2, generator=gen, device="cuda") * 5.0
+            img = (fl * 2.0 if c == 2 else torch.rand(B, H, W, 3, generator=gen, device="cuda"))
+            img = img.to(dtype)
+            _, cx, cy = level0_inputs(torch, dtype, gen, scale=9.0)
+            g = (torch.rand(B, H, W, c, generator=gen, device="cuda") * 2 - 1).to(dtype)
+            for pad, (x, y) in (("zeros", (cx, cy)),
+                                ("border", (cx.clamp(0, W - 1), cy.clamp(0, H - 1)))):
+                ours = wk.warp_bwd_dimg(img, x, y, g)
+                torch.cuda.synchronize()
+                plain = wk.warp_bwd_dimg_plain(img, x, y, g)
+                e = [max_err(a, b_) for a, b_ in zip(ours, plain)]
+                log(f"kernel warp_bwd_dimg C={c} {dn} {pad}: max_abs_err dimg {e[0]:.3e} "
+                    f"(tol {TOL[('warp_bwd_dimg', dn)]}), dcx {e[1]:.3e}, dcy {e[2]:.3e} "
+                    f"(tol {TOL[('warp_bwd', 'float32')]})")
+                if not (e[0] <= TOL[("warp_bwd_dimg", dn)]
+                        and max(e[1:]) <= TOL[("warp_bwd", "float32")]):
+                    raise RuntimeError(f"warp_bwd_dimg disagrees with its plain version "
+                                       f"(C={c}, {dn}, {pad})")
+                if dtype == torch.float32:
+                    err_f32 = max(err_f32, *e)
+    return err_f32
+
+
+def phase_step(torch, wk, dtype) -> tuple[dict, float]:
+    """Three AMD training steps at full width in ``dtype``; returns (launch counts, step ms)."""
     from rcf_tpu_torch.models.amd import build_amd_model
     from rcf_tpu_torch.train import create_train_state, make_train_step
 
-    model = build_amd_model(amd_model_kwargs(), device="cuda", seed=0)
+    model = build_amd_model(amd_model_kwargs(), device="cuda", seed=0, dtype=dtype)
     state = create_train_state(TRAIN_CFG, model, steps_per_epoch=STEPS_PER_EPOCH)
     step = make_train_step()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -195,18 +272,86 @@ def phase_step(torch, wk) -> tuple[dict, float]:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         vals = {k: float(v) for k, v in losses.items()}
-        log(f"step {i}: {times[-1]:.1f} ms, losses {vals}")
+        log(f"step {i} ({str(dtype).split('.')[1]}): {times[-1]:.1f} ms, losses {vals}")
         if not all(math.isfinite(v) for v in vals.values()):
             raise RuntimeError(f"non-finite loss at step {i}: {vals}")
     counts = dict(wk.LAUNCHES)
     log(f"launches over {STEPS} steps: {counts}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k in STEP_KERNELS if counts[k] == 0]
     if missing:
-        raise RuntimeError(f"kernels never launched on the main path: {missing}")
+        raise RuntimeError(f"kernels never launched on the step: {missing}")
     if not all(torch.isfinite(p).all() for p in model.parameters()):
         raise RuntimeError("non-finite parameters after the steps")
     return counts, sum(times[1:]) / len(times[1:])
+
+
+def image_grad_readings(torch, dev: str) -> dict:
+    """The flow warp of ``occu_mask_bidirection`` at the level-0 shape on ``dev``.
+
+    flow12 is smooth (a few pixels), flow21 its negative plus noise, so the
+    forward-backward check passes in places and fails in others. Returns, on
+    the CPU, a seeded scalar of ``flow_warp(flow21, flow12, pad="zeros")``,
+    its gradients in flow21 (the image cotangent) and in flow12, the warped
+    flow and the bidirectional occlusion mask.
+    """
+    from rcf_tpu_torch.ops.warp import flow_warp, occu_mask_bidirection
+
+    gen = torch.Generator().manual_seed(5)
+    ys = torch.arange(H, dtype=torch.float32)[:, None, None]
+    xs = torch.arange(W, dtype=torch.float32)[None, :, None]
+    phase = torch.rand(B, 1, 1, 2, generator=gen) * 2 * math.pi
+    flow12 = 4.0 * torch.sin(ys / 23.0 + xs / 31.0 + phase)
+    flow21 = -flow12 + torch.randn(B, H, W, 2, generator=gen) * 0.6
+    wgt = torch.rand(B, H, W, 2, generator=gen) - 0.5
+    f12, f21 = (f.to(dev).requires_grad_() for f in (flow12, flow21))
+    warped = flow_warp(f21, f12, pad="zeros")
+    value = (warped.double() * wgt.to(dev).double()).sum()  # f64: no summation-order noise
+    d21, d12 = torch.autograd.grad(value, (f21, f12))
+    mask = occu_mask_bidirection(f12.detach(), f21.detach())
+    return {"value": value.item(), "dimg": d21.cpu(), "dflow": d12.cpu(),
+            "warped": warped.detach().cpu(), "flow12": flow12, "mask": mask.cpu()}
+
+
+def image_grad_errors(cpu: dict, cuda: dict) -> dict:
+    """The card's readings against the CPU's, keyed as ``IMG_LIMITS``, and the
+    bidirectional mask: pixels that differ, and pixels whose check is clear of
+    its threshold by more than 1e-4 on the CPU (only those must agree)."""
+    f12, fw = cpu["flow12"], cpu["warped"]
+    lhs = ((f12 + fw) ** 2).sum(-1)
+    rhs = 0.01 * ((f12**2).sum(-1) + (fw**2).sum(-1)) + 0.5
+    clear = (lhs - rhs).abs() > 1e-4
+    return {"value_rel": abs(cuda["value"] - cpu["value"]) / abs(cpu["value"]),
+            "dimg_rel": rel_max(cuda["dimg"], cpu["dimg"]),
+            "dflow_rel": rel_max(cuda["dflow"], cpu["dflow"]),
+            "mask_clear_share": float(clear.float().mean()),
+            "mask_clear_differ": int((cuda["mask"] != cpu["mask"])[clear].sum())}
+
+
+def image_grad_failures(errs: dict) -> list:
+    failed = [k for k, lim in IMG_LIMITS.items() if not errs[k] <= lim]
+    if errs["mask_clear_differ"] != 0 or not errs["mask_clear_share"] > 0.99:
+        failed.append("mask")
+    return failed
+
+
+def phase_image_grad(torch, wk) -> int:
+    """The image-gradient path on the card against the CPU; returns warp_bwd_dimg's launches."""
+    cpu = image_grad_readings(torch, "cpu")
+    wk.reset_launch_counts()
+    cuda = image_grad_readings(torch, "cuda")
+    torch.cuda.synchronize()
+    counts = dict(wk.LAUNCHES)
+    errs = image_grad_errors(cpu, cuda)
+    log(f"image_grad: launches {counts}; occluded share {float(cpu['mask'].mean()):.3f}; "
+        + ", ".join(f"{k} {v:.2e}" + (f" (tol {IMG_LIMITS[k]})" if k in IMG_LIMITS else "")
+                    for k, v in errs.items()))
+    if counts["warp_bwd_dimg"] == 0 or counts["warp_fwd"] == 0:
+        raise RuntimeError(f"the image-gradient path launched no warp_bwd_dimg/warp_fwd: {counts}")
+    failed = image_grad_failures(errs)
+    if failed:
+        raise RuntimeError(f"the image-gradient path disagrees with the CPU: {failed}")
+    return counts["warp_bwd_dimg"]
 
 
 def reference_forward(torch, dev: str) -> dict:
@@ -216,11 +361,18 @@ def reference_forward(torch, dev: str) -> dict:
     input: the loss, the mask probabilities and a flownet weight gradient.
     ``unflow``: the AMD recipe's unFlow loss on seeded random flows (5 levels
     from 128x192, a few pixels long, so that taps leave the frame) and its
-    gradient in the flows.
+    gradient in the flows; ``bidir`` the same with ``occ_from_back=False``.
+    ``model_bf16``: the bf16 AMD forward (train mode, no dropout, no backward)
+    at the same small input and flow_size 384x640: the loss and the finest
+    forward flow. ``feat_warp``: a seeded bf16 feature map warped by a seeded
+    flow at PWC-Lite's finest level (96x160, C=32).
     """
+    import dataclasses
+
     from rcf_tpu_torch.losses import unflow_loss
     from rcf_tpu_torch.models.amd import build_amd_model
     from rcf_tpu_torch.models.amd.amd_model import _FLOW_CFG
+    from rcf_tpu_torch.ops.warp import flow_warp
 
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
@@ -237,10 +389,25 @@ def reference_forward(torch, dev: str) -> dict:
         im1, im2 = (torch.rand(2, 128, 192, 3, generator=gen).to(dev) for _ in range(2))
         flows = [(torch.randn(2, 128 >> i, 192 >> i, 4, generator=gen) * (4.0 / 2**i))
                  .to(dev).requires_grad_() for i in range(5)]
-        loss = unflow_loss(flows, im1, im2, _FLOW_CFG)[0]
         scored = [f for f, w in zip(flows, _FLOW_CFG.w_scales) if w > 0]
-        grads = torch.autograd.grad(loss, scored)
-        out["unflow"] = (loss.item(), torch.cat([g.flatten() for g in grads]).cpu())
+        bidir = dataclasses.replace(_FLOW_CFG, occ_from_back=False)
+        for key, cfg in (("unflow", _FLOW_CFG), ("bidir", bidir)):
+            loss = unflow_loss(flows, im1, im2, cfg)[0]
+            grads = torch.autograd.grad(loss, scored)
+            out[key] = (loss.item(), torch.cat([g.flatten() for g in grads]).cpu())
+
+        model = build_amd_model(amd_model_kwargs(dropout=0.0), device=dev, seed=0,
+                                dtype=torch.bfloat16)
+        flows_out = {}
+        hook = model.flownet.register_forward_hook(lambda m, i, o: flows_out.update(o))
+        with torch.no_grad():
+            losses, _ = model(imgs.to(dev))
+        hook.remove()
+        out["model_bf16"] = (losses["loss"].item(), flows_out["flows_fw"][0].float().cpu())
+
+        feat = torch.rand(2, 96, 160, 32, generator=gen).bfloat16()
+        fl = torch.randn(2, 96, 160, 2, generator=gen) * 3.0
+        out["feat_warp"] = flow_warp(feat.to(dev), fl.to(dev)).cpu()
         return out
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
@@ -251,14 +418,16 @@ def reference_errors(cpu: dict, cuda: dict) -> dict:
     def rel(a: float, b: float) -> float:
         return abs(a - b) / abs(b) if math.isfinite(a) else math.inf
 
-    def rel_max(a, b) -> float:
-        return float((a - b).abs().max() / b.abs().max())
-
     (lc, pc, gc), (lg, pg, gg) = cpu["model"], cuda["model"]
     (uc, uhc), (ug, uhg) = cpu["unflow"], cuda["unflow"]
+    (bc, bhc), (bg, bhg) = cpu["bidir"], cuda["bidir"]
+    (mc, fc), (mg, fg) = cpu["model_bf16"], cuda["model_bf16"]
     return {"loss_rel": rel(lg, lc), "probs_err": float((pg - pc).abs().max()),
             "grad_rel": rel_max(gg, gc), "unflow_rel": rel(ug, uc),
-            "unflow_grad_rel": rel_max(uhg, uhc)}
+            "unflow_grad_rel": rel_max(uhg, uhc), "bidir_rel": rel(bg, bc),
+            "bidir_grad_rel": rel_max(bhg, bhc), "bf16_loss_rel": rel(mg, mc),
+            "bf16_flow_rel": rel_max(fg, fc),
+            "feat_warp_err": max_err(cuda["feat_warp"], cpu["feat_warp"])}
 
 
 def reference_failures(errs: dict) -> list:
@@ -271,7 +440,9 @@ def phase_reference(torch) -> None:
     cpu, cuda = reference_forward(torch, "cpu"), reference_forward(torch, "cuda")
     errs = reference_errors(cpu, cuda)
     log(f"reference: AMD loss cuda {cuda['model'][0]:.6f} cpu {cpu['model'][0]:.6f}; unFlow loss "
-        f"cuda {cuda['unflow'][0]:.6f} cpu {cpu['unflow'][0]:.6f}; "
+        f"cuda {cuda['unflow'][0]:.6f} cpu {cpu['unflow'][0]:.6f}; bidirectional "
+        f"cuda {cuda['bidir'][0]:.6f} cpu {cpu['bidir'][0]:.6f}; bf16 AMD loss "
+        f"cuda {cuda['model_bf16'][0]:.6f} cpu {cpu['model_bf16'][0]:.6f}; "
         + ", ".join(f"{k} {v:.2e} (tol {REF_LIMITS[k]})" for k, v in errs.items()))
     failed = reference_failures(errs)
     if failed:
@@ -302,6 +473,15 @@ def phase_timing(torch, wk, counts: dict, errs: dict) -> list:
                      for v, w_ in zip(valid, wts)])
     dens = torch.zeros(2 * B * H * W, device="cuda")
 
+    # warp_bwd_dimg where the system calls it: a flow (C=2), pad="zeros", coordinates
+    # unclamped; the library call gives both the image and the grid gradient.
+    fl = torch.randn(B, H, W, 2, generator=gen, device="cuda") * 5.0
+    _, zx, zy = level0_inputs(torch, torch.float32, gen)
+    g2 = torch.randn(B, H, W, 2, generator=gen, device="cuda")
+    fl_nchw = fl.permute(0, 3, 1, 2).contiguous()
+    g2_nchw = g2.permute(0, 3, 1, 2).contiguous()
+    zgrid = torch.stack([zx * (2.0 / (W - 1)) - 1.0, zy * (2.0 / (H - 1)) - 1.0], dim=-1)
+
     rows = []
     specs = [
         ("warp_fwd", lambda: wk.warp_fwd(img, cx, cy), lambda: wk.warp_fwd_plain(img, cx, cy),
@@ -316,6 +496,11 @@ def phase_timing(torch, wk, counts: dict, errs: dict) -> list:
         ("splat", lambda: wk.splat(tx, ty, H, W), lambda: wk.splat_plain(tx, ty, H, W),
          lambda: dens.zero_().index_add_(0, idx, val),
          nbytes(tx, ty) + 2 * B * H * W * 4, 2 * n_px * 20),
+        ("warp_bwd_dimg", lambda: wk.warp_bwd_dimg(fl, zx, zy, g2),
+         lambda: wk.warp_bwd_dimg_plain(fl, zx, zy, g2),
+         lambda: torch.ops.aten.grid_sampler_2d_backward(g2_nchw, fl_nchw, zgrid, 0, 0, True,
+                                                         [True, True]),
+         nbytes(fl, zx, zy, g2, fl, zx, zy), n_px * (12 + 22 * 2)),
     ]
     for name, kern, plain, lib, n_bytes, flops in specs:
         ms = cuda_ms(torch, kern)
@@ -364,9 +549,20 @@ def main() -> int:
     phases["kernels"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    counts, step_ms = phase_step(torch, wk)
+    _, step_ms = phase_step(torch, wk, torch.float32)
     phases["step"] = time.perf_counter() - t0
-    log(f"step ms (mean of steps 2-{STEPS}, batch {B}x2, 384^2 frames, TF32 convs): {step_ms:.1f}")
+    log(f"step ms f32 (mean of steps 2-{STEPS}, batch {B}x2, 384^2 frames, TF32 convs): "
+        f"{step_ms:.1f}")
+
+    t0 = time.perf_counter()
+    counts, step_ms_bf16 = phase_step(torch, wk, torch.bfloat16)
+    phases["step_bf16"] = time.perf_counter() - t0
+    log(f"step ms bf16 (mean of steps 2-{STEPS}, batch {B}x2, 384^2 frames): {step_ms_bf16:.1f} "
+        f"(f32: {step_ms:.1f})")
+
+    t0 = time.perf_counter()
+    counts["warp_bwd_dimg"] = phase_image_grad(torch, wk)
+    phases["image_grad"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     phase_reference(torch)
@@ -380,7 +576,8 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60)
     phases["total"] = time.perf_counter() - t_all
     print(json.dumps({"kernels": rows}), flush=True)
-    print(json.dumps({"step_ms": step_ms, "phases_s": phases}), flush=True)
+    print(json.dumps({"step_ms": step_ms, "step_ms_bf16": step_ms_bf16, "phases_s": phases}),
+          flush=True)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: no output",
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,9 +3,12 @@
 Per pyramid level: area-resize the image pair, backward-warp each image
 by the other's flow (the CUDA warp kernel: ``grad_img=False``), score L1
 (w=0.15) + SSIM (w=0.85) (+ optional ternary census) under occlusion masks
-from the backward flow's correspondence density at the finest level (the
-CUDA splat; nearest-downsampled for coarser levels). Optional edge-aware
-1st/2nd-order smoothness. All tensors channel-last.
+from the finest level (nearest-downsampled for coarser levels): the
+backward flow's correspondence density (the CUDA splat) or, with
+``occ_from_back=False``, the forward-backward flow check (the CUDA warp
+with its image gradient). Optional edge-aware 1st/2nd-order smoothness.
+All tensors channel-last. bf16 frames keep JAX's dtype flow: the resized
+frames and the warps stay bf16, the masked terms and the means are f32.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import resize_nearest
-from ..ops.warp import flow_warp, occu_mask_backward
+from ..ops.warp import flow_warp, occu_mask_backward, occu_mask_bidirection
 
 
 def _avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -119,9 +122,6 @@ class UnFlowLossCfg:
 def unflow_loss(pyramid_flows, im1, im2, cfg: UnFlowLossCfg = UnFlowLossCfg()):
     """pyramid_flows: list of [B, h, w, 4] (fw|bw), finest first; images
     [B, H, W, 3] in [0, 1]. Returns (total, warp, smooth, mean |flow0|)."""
-    if not cfg.occ_from_back:
-        raise NotImplementedError(
-            "occ_from_back=False needs the bidirectional occlusion mask, not ported yet")
 
     def photometric(im_scaled, im_recons, occu):
         losses = []
@@ -149,9 +149,13 @@ def unflow_loss(pyramid_flows, im1, im2, cfg: UnFlowLossCfg = UnFlowLossCfg()):
         im1_recons = flow_warp(im2_s, flow[..., :2], pad=cfg.warp_pad, grad_img=False)
         im2_recons = flow_warp(im1_s, flow[..., 2:], pad=cfg.warp_pad, grad_img=False)
         if i == 0:
-            # One batched splat for both directions.
-            both = occu_mask_backward(
-                torch.cat([flow[..., 2:], flow[..., :2]], dim=0), th=0.2)[..., None]
+            # Both directions in one batched call.
+            fw, bw = flow[..., :2], flow[..., 2:]
+            if cfg.occ_from_back:
+                both = occu_mask_backward(torch.cat([bw, fw], dim=0), th=0.2)[..., None]
+            else:
+                both = occu_mask_bidirection(torch.cat([fw, bw], dim=0),
+                                             torch.cat([bw, fw], dim=0))[..., None]
             occu1, occu2 = 1.0 - both[: flow.shape[0]], 1.0 - both[flow.shape[0]:]
             occu1_0, occu2_0 = occu1, occu2
             s = min(h, w)

@@ -6,6 +6,11 @@ learned PWC-Lite flownet over per-mask constant flow groups; the loss is
 the unsupervised photometric flow loss over the segment-wise
 piecewise-constant flows. Images are un-normalized back to [0, 1] and
 resized to ``flow_size`` (align_corners=True) before the flownet.
+
+``dtype`` is the compute dtype (``tpu.compute_dtype`` of a recipe,
+``train.compute_dtype``): the backbone, the mask head and the flownet's
+convolutions run in it, and so do the resized frames; parameters, flows
+and losses stay f32.
 """
 
 from __future__ import annotations
@@ -40,8 +45,9 @@ def maybe_normalize(imgs: torch.Tensor) -> torch.Tensor:
 
 
 def build_amd_model(model_kwargs: dict, device: str | torch.device = "cuda",
-                    seed: int = 0) -> "AMDModel":
-    """AMDModel from the config's ``model_kwargs``, initialized from ``seed`` on ``device``.
+                    seed: int = 0, dtype: torch.dtype = torch.float32) -> "AMDModel":
+    """AMDModel from the config's ``model_kwargs``, initialized from ``seed`` on ``device``,
+    computing in ``dtype``.
 
     The weights are drawn on the CPU from one ``torch.Generator``, so a seed
     gives the same model on every device.
@@ -53,11 +59,9 @@ def build_amd_model(model_kwargs: dict, device: str | torch.device = "cuda",
     mask_cfg = {k: v for k, v in dict(kwargs.pop("decode_head2")).items()
                 if k not in ("type", "create_ema", "loss_decode")}
     kwargs.pop("decode_head", None)  # flownet config is fixed (create_flownet path)
-    if kwargs.pop("log_whole_flow_loss", False):
-        raise NotImplementedError("log_whole_flow_loss (the reference's unused loss) is not ported")
-    known = ("mask_layer", "w_seg", "flow_size")
+    known = ("mask_layer", "w_seg", "flow_size", "log_whole_flow_loss")
     kwargs = {k: v for k, v in kwargs.items() if k in known}
-    model = AMDModel(backbone_cfg, mask_cfg, **kwargs)
+    model = AMDModel(backbone_cfg, mask_cfg, dtype=dtype, **kwargs)
     gen = torch.Generator().manual_seed(seed)
     init_weights(model, gen)
     model.decode_head2.init_conv_seg_(gen)
@@ -66,16 +70,21 @@ def build_amd_model(model_kwargs: dict, device: str | torch.device = "cuda",
 
 class AMDModel(nn.Module):
     def __init__(self, backbone_cfg: dict, mask_head_cfg: dict, mask_layer: int = 5,
-                 w_seg: float = 1.0, flow_size: tuple[int, int] = (384, 640)):
+                 w_seg: float = 1.0, flow_size: tuple[int, int] = (384, 640),
+                 log_whole_flow_loss: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.mask_layer = mask_layer
         self.w_seg = w_seg
         self.flow_size = tuple(flow_size)
-        self.backbone2 = ResNet(**backbone_cfg)
+        # The reference computes the unconstrained ("whole") flows' loss but
+        # never uses it; True reports it as ``loss_warp_whole``, outside ``loss``.
+        self.log_whole_flow_loss = log_whole_flow_loss
+        self.compute_dtype = dtype
+        self.backbone2 = ResNet(**backbone_cfg, dtype=dtype)
         head_cfg = dict(mask_head_cfg)
         head_cfg.setdefault("in_channels", self.backbone2.out_channels[head_cfg.get("in_index", -1)])
-        self.decode_head2 = FCNHead(**head_cfg)
-        self.flownet = PWCLite(mask_layer=mask_layer)
+        self.decode_head2 = FCNHead(**head_cfg, dtype=dtype)
+        self.flownet = PWCLite(mask_layer=mask_layer, dtype=dtype)
 
     def mask_probs(self, imgs_flat: torch.Tensor) -> torch.Tensor:
         """imgs [N, H, W, 3] -> softmax mask probabilities [N, h, w, M]."""
@@ -102,15 +111,19 @@ class AMDModel(nn.Module):
         else:
             raw = (imgs * torch.as_tensor(IMAGENET_STD, device=imgs.device)
                    + torch.as_tensor(IMAGENET_MEAN, device=imgs.device))
-        im1 = resize_bilinear(raw[:, 0], self.flow_size, align_corners=True)
-        im2 = resize_bilinear(raw[:, 1], self.flow_size, align_corners=True)
+        dt = self.compute_dtype
+        im1 = resize_bilinear(raw[:, 0], self.flow_size, align_corners=True).to(dt)
+        im2 = resize_bilinear(raw[:, 1], self.flow_size, align_corners=True).to(dt)
 
         res = self.flownet(im1, im2, probs[:, 0], probs[:, 1], with_bk=True)
 
         def stacked(fw_list, bw_list):
             return [torch.cat([f, bw], dim=-1) for f, bw in zip(fw_list, bw_list)]
 
-        # Only the segment-wise flows are scored: the reference computes the
-        # unconstrained ("whole") flows' loss but never uses it.
+        # Only the segment-wise flows are scored.
         loss_seg, *_ = unflow_loss(stacked(res["flows_fw"], res["flows_bw"]), im1, im2, _FLOW_CFG)
-        return {"loss_warp_seg": loss_seg, "loss": loss_seg * self.w_seg}, probs
+        losses = {"loss_warp_seg": loss_seg, "loss": loss_seg * self.w_seg}
+        if self.log_whole_flow_loss:
+            losses["loss_warp_whole"] = unflow_loss(
+                stacked(res["flows_fw_all"], res["flows_bw_all"]), im1, im2, _FLOW_CFG)[0]
+        return losses, probs

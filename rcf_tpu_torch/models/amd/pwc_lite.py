@@ -9,7 +9,9 @@ broadcast over space, accumulated across levels and composited through
 the masks.
 
 Tensors are channel-last, as in the JAX package; each conv runs on a
-permuted view. State-dict keys follow the reference PWCLite
+permuted view. ``dtype`` is the compute dtype of the convolutions and the
+cost volume; flows, their upsampling and their accumulation stay f32, and
+the mask-weighted flow sums promote to f32 (JAX ``pwc_lite.py``). State-dict keys follow the reference PWCLite
 (``feature_pyramid_extractor.convs.{l}.{j}.0``,
 ``flow_estimators.{name}.0``, ``conv_1x1.{i}.0``).
 """
@@ -20,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...nn.layers import to_nchw, to_nhwc
+from ...nn.layers import Conv2d, to_nchw, to_nhwc
 from ...ops import resize_bilinear
 from ...ops.warp import correlation, flow_warp
 
@@ -29,10 +31,11 @@ SEARCH_RANGE = 4  # cost volume over (2*4+1)^2 = 81 displacements
 OUTPUT_LEVEL = 4  # the loop runs the 5 coarsest of the 6 pyramid levels
 
 
-def _conv(cin, cout, kernel_size=3, stride=1, dilation=1) -> nn.Sequential:
+def _conv(cin, cout, kernel_size=3, stride=1, dilation=1,
+          dtype=torch.float32) -> nn.Sequential:
     pad = ((kernel_size - 1) * dilation) // 2
-    return nn.Sequential(nn.Conv2d(cin, cout, kernel_size, stride=stride, padding=pad,
-                                   dilation=dilation, bias=True))
+    return nn.Sequential(Conv2d(cin, cout, kernel_size, stride=stride, padding=pad,
+                                dilation=dilation, bias=True, compute_dtype=dtype))
 
 
 def _apply(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -45,10 +48,10 @@ def _lrelu(x):
 
 
 class FeatureExtractor(nn.Module):
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.convs = nn.ModuleList(
-            nn.ModuleList([_conv(cin, cout, stride=2), _conv(cout, cout)])
+            nn.ModuleList([_conv(cin, cout, stride=2, dtype=dtype), _conv(cout, cout, dtype=dtype)])
             for cin, cout in zip(NUM_CHS[:-1], NUM_CHS[1:]))
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
@@ -61,16 +64,16 @@ class FeatureExtractor(nn.Module):
 
 
 class FlowEstimatorReduce(nn.Module):
-    def __init__(self, in_channels: int, mask_layer: int):
+    def __init__(self, in_channels: int, mask_layer: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.mask_layer = mask_layer
-        self.conv1 = _conv(in_channels, 128)
-        self.conv2 = _conv(128, 128)
-        self.conv3 = _conv(128 + 128, 96)
-        self.conv4 = _conv(128 + 96, 64)
-        self.conv5 = _conv(96 + 64, 32)
-        self.predict_flow1 = _conv(64 + 32, 64, kernel_size=1)
-        self.predict_flow2 = _conv(64, 2, kernel_size=1)
+        self.conv1 = _conv(in_channels, 128, dtype=dtype)
+        self.conv2 = _conv(128, 128, dtype=dtype)
+        self.conv3 = _conv(128 + 128, 96, dtype=dtype)
+        self.conv4 = _conv(128 + 96, 64, dtype=dtype)
+        self.conv5 = _conv(96 + 64, 32, dtype=dtype)
+        self.predict_flow1 = _conv(64 + 32, 64, kernel_size=1, dtype=dtype)
+        self.predict_flow2 = _conv(64, 2, kernel_size=1, dtype=dtype)
 
     def _head(self, f: torch.Tensor) -> torch.Tensor:
         return self.predict_flow2(_lrelu(self.predict_flow1(f))).float()
@@ -99,14 +102,14 @@ class FlowEstimatorReduce(nn.Module):
 
 
 class PWCLite(nn.Module):
-    def __init__(self, mask_layer: int):
+    def __init__(self, mask_layer: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.mask_layer = mask_layer
-        self.feature_pyramid_extractor = FeatureExtractor()
+        self.feature_pyramid_extractor = FeatureExtractor(dtype)
         n_corr = (2 * SEARCH_RANGE + 1) ** 2
-        self.flow_estimators = FlowEstimatorReduce(n_corr + 32 + 2, mask_layer)
+        self.flow_estimators = FlowEstimatorReduce(n_corr + 32 + 2, mask_layer, dtype)
         # conv_1x1[level] sees the pyramid level `level`, coarsest first.
-        self.conv_1x1 = nn.ModuleList(_conv(ch, 32, kernel_size=1)
+        self.conv_1x1 = nn.ModuleList(_conv(ch, 32, kernel_size=1, dtype=dtype)
                                       for ch in NUM_CHS[::-1][:OUTPUT_LEVEL + 1])
 
     def _one_direction(self, x1_pyr, x2_pyr, mask):

@@ -8,7 +8,8 @@ the RCF heads are not ported yet.
 
 State-dict keys follow the reference FCNHead (``convs.{i}.conv``,
 ``convs.{i}.bn``, ``conv_seg``). ``forward`` takes the NHWC
-feature tuple and returns NHWC logits.
+feature tuple and returns NHWC logits, in the compute ``dtype``
+(``nn/layers.py``).
 """
 
 from __future__ import annotations
@@ -16,13 +17,14 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import ConvModule, to_nchw, to_nhwc
+from .layers import Conv2d, ConvModule, to_nchw, to_nhwc
 
 
 class FCNHead(nn.Module):
     def __init__(self, num_classes: int, in_channels: int, channels: int = 256,
                  num_convs: int = 2, dilation: int = 1, dropout_ratio: float = 0.1,
-                 in_index: int = -1, concat_input: bool = False):
+                 in_index: int = -1, concat_input: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if concat_input or not isinstance(in_index, int):
             raise NotImplementedError(
@@ -30,9 +32,10 @@ class FCNHead(nn.Module):
         self.in_index = in_index
         self.dropout_ratio = dropout_ratio
         self.convs = nn.ModuleList(
-            ConvModule(in_channels if i == 0 else channels, channels, dilation=dilation)
+            ConvModule(in_channels if i == 0 else channels, channels, dilation=dilation,
+                       dtype=dtype)
             for i in range(num_convs))
-        self.conv_seg = nn.Conv2d(channels, num_classes, 1)
+        self.conv_seg = Conv2d(channels, num_classes, 1, compute_dtype=dtype)
 
     def init_conv_seg_(self, generator: torch.Generator | None = None) -> None:
         with torch.no_grad():

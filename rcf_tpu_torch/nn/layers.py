@@ -1,8 +1,14 @@
-"""Shared building blocks: BatchNorm with the JAX package's statistics, ConvModule.
+"""Shared building blocks: a conv with a compute dtype, BatchNorm with the
+JAX package's statistics, ConvModule.
 
 Modules take and return channel-last tensors at their public ``forward``
 where the JAX package does; inside, convolutions run on a permuted view
 (NCHW shape, channels-last memory), so no copy is made at the boundary.
+
+Compute dtype, as Flax's module ``dtype``: parameters stay f32; a conv
+casts its input, kernel and bias to the compute dtype and returns that
+dtype; BatchNorm takes its batch statistics and normalizes in f32 (its
+running statistics stay f32) and returns the compute dtype.
 """
 
 from __future__ import annotations
@@ -27,6 +33,19 @@ def to_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in ``compute_dtype``, as ``flax.linen.Conv(dtype=...)``."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
 class BatchNorm2d(nn.Module):
     """BatchNorm over NCHW with Flax's running statistics.
 
@@ -34,31 +53,33 @@ class BatchNorm2d(nn.Module):
     does, but updates ``running_var`` with the *biased* batch variance, as
     Flax (and so the JAX package) does; torch's own module uses the
     unbiased one. State: ``weight``, ``bias``, ``running_mean``,
-    ``running_var``.
+    ``running_var``. Computes in f32 and returns ``compute_dtype``.
     """
 
-    def __init__(self, num_features: int):
+    def __init__(self, num_features: int, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
         if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
-                                self.bias, False, 0.0, BN_EPS)
+            return F.batch_norm(xf, self.running_mean, self.running_var, self.weight,
+                                self.bias, False, 0.0, BN_EPS).to(self.compute_dtype)
         # momentum=1 makes the fused op hand back the batch mean and the
         # unbiased batch variance in these scratch buffers.
         mean = torch.zeros_like(self.running_mean)
         var = torch.ones_like(self.running_var)
-        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, BN_EPS)
+        y = F.batch_norm(xf, mean, var, self.weight, self.bias, True, 1.0, BN_EPS)
         n = x.numel() // x.shape[1]
         with torch.no_grad():
             m = BN_MOMENTUM
             self.running_mean.mul_(1 - m).add_(mean, alpha=m)
             self.running_var.mul_(1 - m).add_(var, alpha=m * (n - 1) / n)
-        return y
+        return y.to(self.compute_dtype)
 
 
 def he_normal_(w: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
@@ -87,11 +108,12 @@ def init_weights(module: nn.Module, generator: torch.Generator | None = None) ->
 class ConvModule(nn.Module):
     """3x3 conv (no bias) -> BN -> ReLU, the mmcv ConvModule contract (NCHW)."""
 
-    def __init__(self, in_channels: int, out_channels: int, dilation: int = 1):
+    def __init__(self, in_channels: int, out_channels: int, dilation: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=dilation,
-                              dilation=dilation, bias=False)
-        self.bn = BatchNorm2d(out_channels)
+        self.conv = Conv2d(in_channels, out_channels, 3, padding=dilation,
+                           dilation=dilation, bias=False, compute_dtype=dtype)
+        self.bn = BatchNorm2d(out_channels, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.bn(self.conv(x)))

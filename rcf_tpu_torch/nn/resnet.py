@@ -8,7 +8,8 @@ output stride 8.
 
 State-dict keys follow torchvision/mmseg (``conv1``, ``bn1``,
 ``layer{s}.{b}.conv{i}``, ``layer{s}.{b}.downsample.{0,1}``). ``forward``
-takes NHWC frames and returns NHWC features.
+takes NHWC frames and returns NHWC features. ``dtype`` is the compute
+dtype of the convolutions and batch norms (``nn/layers.py``).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm2d, to_nchw, to_nhwc
+from .layers import BatchNorm2d, Conv2d, to_nchw, to_nhwc
 
 _STAGE_BLOCKS = {
     18: (2, 2, 2, 2),
@@ -31,25 +32,26 @@ _STAGE_BLOCKS = {
 _BASIC_DEPTHS = (18, 34)
 
 
-def _conv(cin, cout, k, stride=1, dilation=1):
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=(k - 1) // 2 * dilation,
-                     dilation=dilation, bias=False)
+def _conv(cin, cout, k, stride=1, dilation=1, dtype=torch.float32):
+    return Conv2d(cin, cout, k, stride=stride, padding=(k - 1) // 2 * dilation,
+                  dilation=dilation, bias=False, compute_dtype=dtype)
 
 
-def _downsample(cin, cout, stride):
-    return nn.Sequential(_conv(cin, cout, 1, stride), BatchNorm2d(cout))
+def _downsample(cin, cout, stride, dtype):
+    return nn.Sequential(_conv(cin, cout, 1, stride, dtype=dtype), BatchNorm2d(cout, dtype))
 
 
 class BasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, inplanes, planes, stride, dilation, has_downsample):
+    def __init__(self, inplanes, planes, stride, dilation, has_downsample, dtype):
         super().__init__()
-        self.conv1 = _conv(inplanes, planes, 3, stride, dilation)
-        self.bn1 = BatchNorm2d(planes)
-        self.conv2 = _conv(planes, planes, 3, 1, dilation)
-        self.bn2 = BatchNorm2d(planes)
-        self.downsample = _downsample(inplanes, planes, stride) if has_downsample else None
+        self.conv1 = _conv(inplanes, planes, 3, stride, dilation, dtype)
+        self.bn1 = BatchNorm2d(planes, dtype)
+        self.conv2 = _conv(planes, planes, 3, 1, dilation, dtype)
+        self.bn2 = BatchNorm2d(planes, dtype)
+        self.downsample = (_downsample(inplanes, planes, stride, dtype) if has_downsample
+                           else None)
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
@@ -61,15 +63,16 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, inplanes, planes, stride, dilation, has_downsample):
+    def __init__(self, inplanes, planes, stride, dilation, has_downsample, dtype):
         super().__init__()
-        self.conv1 = _conv(inplanes, planes, 1)
-        self.bn1 = BatchNorm2d(planes)
-        self.conv2 = _conv(planes, planes, 3, stride, dilation)
-        self.bn2 = BatchNorm2d(planes)
-        self.conv3 = _conv(planes, planes * 4, 1)
-        self.bn3 = BatchNorm2d(planes * 4)
-        self.downsample = _downsample(inplanes, planes * 4, stride) if has_downsample else None
+        self.conv1 = _conv(inplanes, planes, 1, dtype=dtype)
+        self.bn1 = BatchNorm2d(planes, dtype)
+        self.conv2 = _conv(planes, planes, 3, stride, dilation, dtype)
+        self.bn2 = BatchNorm2d(planes, dtype)
+        self.conv3 = _conv(planes, planes * 4, 1, dtype=dtype)
+        self.bn3 = BatchNorm2d(planes * 4, dtype)
+        self.downsample = (_downsample(inplanes, planes * 4, stride, dtype) if has_downsample
+                           else None)
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
@@ -84,12 +87,12 @@ class ResNet(nn.Module):
                  strides: Sequence[int] = (1, 2, 2, 2),
                  dilations: Sequence[int] = (1, 1, 1, 1),
                  out_indices: Sequence[int] = (0, 1, 2, 3),
-                 contract_dilation: bool = False):
+                 contract_dilation: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.out_indices = tuple(out_indices)
         block = BasicBlock if depth in _BASIC_DEPTHS else Bottleneck
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = BatchNorm2d(64)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False, compute_dtype=dtype)
+        self.bn1 = BatchNorm2d(64, dtype)
         inplanes = 64
         self.num_stages = num_stages
         stage_channels = []
@@ -101,10 +104,10 @@ class ResNet(nn.Module):
                 if blk == 0:
                     d0 = dilation // 2 if (dilation > 1 and contract_dilation) else dilation
                     has_ds = stride != 1 or inplanes != planes * block.expansion
-                    blocks.append(block(inplanes, planes, stride, d0, has_ds))
+                    blocks.append(block(inplanes, planes, stride, d0, has_ds, dtype))
                     inplanes = planes * block.expansion
                 else:
-                    blocks.append(block(inplanes, planes, 1, dilation, False))
+                    blocks.append(block(inplanes, planes, 1, dilation, False, dtype))
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
             stage_channels.append(inplanes)
         # Channels of each returned feature, in ``forward``'s order.

@@ -1,16 +1,17 @@
-"""Flow warping, occlusion mask, cost volume (channel-last tensors).
+"""Flow warping, occlusion masks, cost volume (channel-last tensors).
 
 Port of ``rcf_tpu/ops/warp.py``. Routing:
 
-* ``flow_warp`` of an image (C <= 8) with ``grad_img=False`` — every
-  photometric warp of the unFlow loss — runs the hand-written CUDA warp
-  and its coordinate backward (``warp_kernels``) at every size;
+* ``flow_warp`` of a map with C <= 8 (images, flows) runs the hand-written
+  CUDA warp (``warp_kernels``) at every size. Its backward is the kernel
+  that also gives the image cotangent where the image needs a gradient
+  (``grad_img=True`` and an image that requires one, as the flow warp of
+  ``occu_mask_bidirection`` differentiated in its flow), else the
+  coordinate-only kernel (``grad_img=False``: every photometric warp of
+  the unFlow loss);
 * ``flow_warp`` of a feature map (C > 8, PWC-Lite's pyramid warps, image
-  gradient needed) uses ``F.grid_sample``, as the JAX package leaves
-  those to XLA's gather;
-* ``flow_warp`` of a C <= 8 map that needs its gradient takes the plain
-  gather ``bilinear_sample`` (the TPU kernel with an image cotangent is
-  not ported yet; no AMD-step warp takes this route);
+  gradient needed) uses ``F.grid_sample`` in f32, as the JAX package
+  leaves those to XLA's gather (which returns f32 for bf16 features);
 * ``corresponding_map`` / ``occu_mask_backward`` run the CUDA splat;
 * ``correlation`` stays plain tensor code, as in JAX.
 """
@@ -20,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .warp_kernels import splat, warp_no_image_grad
+from .warp_kernels import splat, warp
 
 
 def _base_grid(h: int, w: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -37,45 +38,17 @@ def _abs_coords(flow: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return xs + fl[..., 0], ys + fl[..., 1]
 
 
-def bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-                    pad: str = "border") -> torch.Tensor:
-    """Sample img [B, H, W, C] at float coords (x, y) [B, H', W'] each.
-
-    Matches grid_sample(align_corners=True) with 'border' or 'zeros'
-    padding; differentiable in the image and the coordinates.
-    """
-    b, h, w, c = img.shape
-    x0 = torch.floor(x)
-    y0 = torch.floor(y)
-    wx = (x - x0)[..., None]
-    wy = (y - y0)[..., None]
-    flat = img.reshape(b, h * w, c)
-
-    def gather(yy, xx):
-        yc = yy.clamp(0, h - 1).long()
-        xc = xx.clamp(0, w - 1).long()
-        idx = (yc * w + xc).reshape(b, -1, 1).expand(-1, -1, c)
-        vals = torch.gather(flat, 1, idx).reshape(*x.shape, c)
-        if pad == "zeros":
-            inside = ((xx >= 0) & (xx <= w - 1) & (yy >= 0) & (yy <= h - 1))[..., None]
-            vals = torch.where(inside, vals, torch.zeros_like(vals))
-        return vals
-
-    v00 = gather(y0, x0)
-    v01 = gather(y0, x0 + 1)
-    v10 = gather(y0 + 1, x0)
-    v11 = gather(y0 + 1, x0 + 1)
-    top = v00 * (1 - wx) + v01 * wx
-    bot = v10 * (1 - wx) + v11 * wx
-    return top * (1 - wy) + bot * wy
-
-
 def _grid_sample_nhwc(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                       pad: str) -> torch.Tensor:
-    """grid_sample(align_corners=True) at absolute coordinates, NHWC in and out."""
+    """grid_sample(align_corners=True) at absolute coordinates, NHWC in, NHWC f32 out.
+
+    The grid stays f32 (bf16's spacing near +-1 is 2^-8, a third of a pixel
+    at 160 wide), and a bf16 map is sampled in f32: JAX's gather blends bf16
+    values with f32 weights, which promotes the result to f32.
+    """
     h, w = img.shape[1:3]
     grid = torch.stack([x * (2.0 / (w - 1)) - 1.0, y * (2.0 / (h - 1)) - 1.0], dim=-1)
-    out = F.grid_sample(img.permute(0, 3, 1, 2), grid.to(img.dtype), mode="bilinear",
+    out = F.grid_sample(img.permute(0, 3, 1, 2).float(), grid, mode="bilinear",
                         padding_mode=pad, align_corners=True)
     return out.permute(0, 2, 3, 1)
 
@@ -93,13 +66,11 @@ def flow_warp(x: torch.Tensor, flow: torch.Tensor, pad: str = "border",
     cx, cy = _abs_coords(flow)
     if c > 8:
         return _grid_sample_nhwc(x, cx, cy, pad)
-    if grad_img:
-        return bilinear_sample(x, cx, cy, pad=pad)
     if pad == "border":
         # grid_sample(border) == sampling at box-clamped coordinates.
         cx = cx.clamp(0.0, float(w - 1))
         cy = cy.clamp(0.0, float(h - 1))
-    return warp_no_image_grad(x, cx, cy)
+    return warp(x if grad_img else x.detach(), cx, cy)
 
 
 def corresponding_map(flow: torch.Tensor) -> torch.Tensor:
@@ -117,6 +88,16 @@ def occu_mask_backward(flow21: torch.Tensor, th: float = 0.2) -> torch.Tensor:
     """[B, H, W] float mask: 1 where occluded (correspondence density < th)."""
     corr = corresponding_map(flow21).clamp(0.0, 1.0)
     return (corr < th).float()
+
+
+def occu_mask_bidirection(flow12: torch.Tensor, flow21: torch.Tensor,
+                          scale: float = 0.01, bias: float = 0.5) -> torch.Tensor:
+    """[B, H, W] float mask: 1 where the forward-backward flow check fails."""
+    flow21_warped = flow_warp(flow21, flow12, pad="zeros")
+    diff = flow12 + flow21_warped
+    mag = torch.sum(flow12**2, -1) + torch.sum(flow21_warped**2, -1)
+    occ = torch.sum(diff**2, -1) > (scale * mag + bias)
+    return occ.float()
 
 
 def correlation(x1: torch.Tensor, x2: torch.Tensor, max_displacement: int = 4) -> torch.Tensor:

@@ -1,7 +1,7 @@
-"""The AMD loss's warp and splat kernels: CUDA build, ctypes binding, wrappers.
+"""The warp and splat kernels: CUDA build, ctypes binding, wrappers.
 
-Three hand-written CUDA kernels (``csrc/warp.cu``) replace the TPU kernels
-of ``rcf_tpu/ops/pallas/warp_pallas.py`` that the AMD training step runs:
+Four hand-written CUDA kernels (``csrc/warp.cu``) replace the TPU kernels
+of ``rcf_tpu/ops/pallas/warp_pallas.py``:
 
 * ``warp_fwd``  <- ``_warp_fwd_kernel``: bilinear sample of ``img``
   [B,H,W,C] at absolute f32 coordinates ``cx``, ``cy`` [B,H,W] with
@@ -10,6 +10,9 @@ of ``rcf_tpu/ops/pallas/warp_pallas.py`` that the AMD training step runs:
 * ``warp_bwd``  <- ``_warp_bwd_kernel_nodimg``: ``dcx``, ``dcy`` from the
   output cotangent, forward recomputed, derivative 0 at exact-integer
   coordinates (the TPU kernel's ``_dhat``); no image cotangent;
+* ``warp_bwd_dimg`` <- ``_warp_bwd_kernel``: ``warp_bwd``'s ``dcx``, ``dcy``
+  plus the image cotangent ``dimg``, an f32 overlap-add of ``g`` times the
+  bilinear weights into the source taps, returned in the image's dtype;
 * ``splat``     <- ``_splat_kernel``: forward bilinear splat of ones at
   ``(tx, ty)`` into an f32 density, out-of-range corners dropped.
 
@@ -41,7 +44,7 @@ SOURCES = ("warp.cu",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"warp_fwd": 0, "warp_bwd": 0, "splat": 0}
+LAUNCHES = {"warp_fwd": 0, "warp_bwd": 0, "warp_bwd_dimg": 0, "splat": 0}
 
 _lib: ctypes.CDLL | None = None
 
@@ -104,6 +107,10 @@ def _load() -> ctypes.CDLL:
         for name in ("rcf_warp_bwd_f32", "rcf_warp_bwd_bf16"):
             fn = getattr(lib, name)
             fn.argtypes = [p, p, p, p, p, p, i64, i32, i32, i32, p]
+            fn.restype = i32
+        for name in ("rcf_warp_bwd_dimg_f32", "rcf_warp_bwd_dimg_bf16"):
+            fn = getattr(lib, name)
+            fn.argtypes = [p, p, p, p, p, p, p, i64, i32, i32, i32, p]
             fn.restype = i32
         lib.rcf_splat.argtypes = [p, p, p, i64, i64, i32, i32, p]
         lib.rcf_splat.restype = i32
@@ -191,6 +198,21 @@ def warp_bwd_plain(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
     return torch.where(ax == 0, zero, sx), torch.where(ay == 0, zero, sy)
 
 
+def warp_bwd_dimg_plain(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
+                        g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    b, h, w, c = img.shape
+    offs, valid, ax, ay = _taps(cx, cy, h, w)
+    gf = g.float().reshape(b, h * w, c)
+    weights = ((1 - ay) * (1 - ax), (1 - ay) * ax, ay * (1 - ax), ay * ax)
+    dimg = torch.zeros(b, h * w, c, dtype=torch.float32, device=img.device)
+    for off, ok, wt in zip(offs, valid, weights):
+        idx = off.clamp(0, h * w - 1).reshape(b, -1, 1).expand(-1, -1, c)
+        wt = torch.where(ok, wt, torch.zeros_like(wt)).reshape(b, -1, 1)
+        dimg.scatter_add_(1, idx, gf * wt)
+    dcx, dcy = warp_bwd_plain(img, cx, cy, g)
+    return dimg.reshape(b, h, w, c).to(img.dtype), dcx, dcy
+
+
 def splat_plain(tx: torch.Tensor, ty: torch.Tensor, h: int, w: int) -> torch.Tensor:
     b = tx.shape[0]
     offs, valid, ax, ay = _taps(tx, ty, h, w)
@@ -245,6 +267,31 @@ def warp_bwd(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
     return dcx, dcy
 
 
+def warp_bwd_dimg(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
+                  g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """d(sum g * warp_fwd(img, cx, cy)) / d(img, cx, cy): dimg in img's dtype, dcx, dcy f32."""
+    _check_warp(img, cx, cy)
+    if g.shape != img.shape:
+        raise ValueError(f"g must be {tuple(img.shape)}, got {tuple(g.shape)}")
+    g = g.to(img.dtype)
+    if _check_device("warp_bwd_dimg", img, cx, cy, g) == "cpu":
+        return warp_bwd_dimg_plain(img, cx, cy, g)
+    img, cx, cy, g = img.contiguous(), cx.contiguous(), cy.contiguous(), g.contiguous()
+    # The kernel overlap-adds into dimg with f32 atomics: it must start at zero.
+    dimg = torch.zeros(img.shape, dtype=torch.float32, device=img.device)
+    dcx = torch.empty_like(cx)
+    dcy = torch.empty_like(cy)
+    b, h, w, c = img.shape
+    lib = _load()
+    fn = lib.rcf_warp_bwd_dimg_f32 if img.dtype == torch.float32 else lib.rcf_warp_bwd_dimg_bf16
+    with torch.cuda.device(img.device):
+        err = fn(img.data_ptr(), cx.data_ptr(), cy.data_ptr(), g.data_ptr(), dimg.data_ptr(),
+                 dcx.data_ptr(), dcy.data_ptr(), b * h * w, h, w, c, _stream(img))
+    _check_launch(err, "warp_bwd_dimg")
+    LAUNCHES["warp_bwd_dimg"] += 1
+    return dimg.to(img.dtype), dcx, dcy
+
+
 def splat(tx: torch.Tensor, ty: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Splat ones at (tx, ty) [B,Hs,Ws] f32 into a density [B,h,w] f32."""
     if tx.dim() != 3 or tx.shape != ty.shape:
@@ -264,8 +311,9 @@ def splat(tx: torch.Tensor, ty: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return out
 
 
-class _WarpNoImageGrad(torch.autograd.Function):
-    """warp_fwd with warp_bwd as its backward: gradients reach cx, cy only."""
+class _Warp(torch.autograd.Function):
+    """warp_fwd; its backward is warp_bwd_dimg where the image needs a gradient,
+    else warp_bwd (the TPU package's ``need_dimg``, decided from the graph)."""
 
     @staticmethod
     def forward(ctx, img, cx, cy):
@@ -275,10 +323,11 @@ class _WarpNoImageGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         img, cx, cy = ctx.saved_tensors
-        dcx, dcy = warp_bwd(img, cx, cy, g)
-        return None, dcx, dcy
+        if ctx.needs_input_grad[0]:
+            return warp_bwd_dimg(img, cx, cy, g)
+        return (None, *warp_bwd(img, cx, cy, g))
 
 
-def warp_no_image_grad(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor) -> torch.Tensor:
-    """Differentiable in (cx, cy); the image is data and gets no gradient."""
-    return _WarpNoImageGrad.apply(img, cx, cy)
+def warp(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor) -> torch.Tensor:
+    """warp_fwd, differentiable in (cx, cy), and in img where img requires a gradient."""
+    return _Warp.apply(img, cx, cy)

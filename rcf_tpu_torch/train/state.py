@@ -5,7 +5,15 @@ Port of ``rcf_tpu/train/state.py`` for the optimizer the AMD recipe uses:
 gradient before the moments (not AdamW), betas (0.9, 0.999), eps 1e-8,
 as ``make_optimizer`` chains ``add_decayed_weights`` ahead of
 ``scale_by_adam``. The learning rate of update ``k`` (0-based) is
-``poly_epoch_schedule(k)``, as optax counts. No EMA, no frozen subtrees.
+``poly_epoch_schedule(k)``, as optax counts. No EMA.
+
+Frozen subtrees, as ``make_optimizer``'s ``optax.set_to_zero`` mask:
+``model_kwargs.freeze_backbone`` freezes ``backbone2`` and
+``model_kwargs.decode_head.freeze_flownet`` freezes ``flownet``. They are
+left out of the optimizer (no update, no weight decay, no Adam moments)
+and, as in the reference, set ``requires_grad=False``; gradients still
+flow through them to the trainable parameters. Their BN running
+statistics go on updating in training mode, as the JAX step's do.
 """
 
 from __future__ import annotations
@@ -36,8 +44,25 @@ class TrainState:
     step: int = 0
 
 
+def compute_dtype(cfg: dict) -> torch.dtype:
+    """The recipe's ``tpu.compute_dtype``: bfloat16 if it says so, else float32."""
+    name = (cfg.get("tpu") or {}).get("compute_dtype")
+    return torch.bfloat16 if name == "bfloat16" else torch.float32
+
+
+def _frozen_subtrees(cfg: dict) -> tuple[str, ...]:
+    """Top-level submodules the recipe freezes (``freeze_backbone``, ``freeze_flownet``)."""
+    model_kwargs = cfg.get("model_kwargs") or {}
+    frozen = []
+    if model_kwargs.get("freeze_backbone", False):
+        frozen.append("backbone2")
+    if (model_kwargs.get("decode_head") or {}).get("freeze_flownet", False):
+        frozen.append("flownet")
+    return tuple(frozen)
+
+
 def create_train_state(cfg: dict, model: nn.Module, steps_per_epoch: int) -> TrainState:
-    """Adam + poly schedule over all of ``model``'s parameters, from a recipe config dict."""
+    """Adam + poly schedule over ``model``'s trainable parameters, from a recipe config dict."""
     name = str(cfg.get("optimizer", "adam")).lower()
     if name != "adam":
         raise NotImplementedError(f"the port's train state has Adam only, got {name!r}")
@@ -49,6 +74,10 @@ def create_train_state(cfg: dict, model: nn.Module, steps_per_epoch: int) -> Tra
         epochs=int(cfg["epochs"]),
         steps_per_epoch=steps_per_epoch,
     )
-    optimizer = torch.optim.Adam(model.parameters(), lr=schedule(0), betas=(0.9, 0.999),
+    frozen = _frozen_subtrees(cfg)
+    for name in frozen:
+        getattr(model, name).requires_grad_(False)
+    params = [p for name, p in model.named_parameters() if name.split(".")[0] not in frozen]
+    optimizer = torch.optim.Adam(params, lr=schedule(0), betas=(0.9, 0.999),
                                  eps=1e-8, weight_decay=float(cfg.get("weight_decay", 0.0)))
     return TrainState(model=model, optimizer=optimizer, schedule=schedule)

@@ -5,7 +5,9 @@ a reduced model (ResNet-18 backbone, narrow head, 64^2 frames, flow_size
 64x96) at the recipe's optimizer: Adam with L2 weight decay and the poly
 epoch schedule, one step per epoch so that the learning rate moves
 between the steps. After each step the losses, every parameter and every
-BN running statistic are compared.
+BN running statistic are compared. With ``freeze_flownet`` the flownet's
+parameters must come out bit-identical and the rest is held to JAX as
+without it.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from rcf_tpu.config import Config
 from rcf_tpu.models.amd import build_amd_model as jax_build_amd_model
@@ -58,17 +62,20 @@ def test_poly_epoch_schedule_matches_jax():
         np.testing.assert_allclose(ours(step), float(ref(jnp.asarray(step))), rtol=1e-6)
 
 
-def test_two_train_steps_match_jax():
+@pytest.mark.parametrize("freeze_flownet", [False, True])
+def test_two_train_steps_match_jax(freeze_flownet):
+    cfg = dict(CFG, model_kwargs={"decode_head": {"freeze_flownet": freeze_flownet}})
     imgs = np.random.default_rng(0).standard_normal((2, 2, 64, 64, 3)).astype(np.float32)
     jmodel = jax_build_amd_model(MODEL_KWARGS)
     variables = init_variables(jmodel, jnp.asarray(imgs), train=True)
-    jstate = jax_create_train_state(Config(CFG), jmodel, variables, steps_per_epoch=1)
+    jstate = jax_create_train_state(Config(cfg), jmodel, variables, steps_per_epoch=1)
     jstep = jax_make_train_step(jmodel, donate=False)
 
     model = build_amd_model(MODEL_KWARGS, device="cpu")
     model.load_state_dict(torch_state_from_jax(variables))
-    state = create_train_state(CFG, model, steps_per_epoch=1)
+    state = create_train_state(cfg, model, steps_per_epoch=1)
     step = make_train_step()
+    initial = {k: t.clone() for k, t in model.state_dict().items()}
 
     for k in range(2):
         before = torch_state_from_jax({"params": jstate.params, "batch_stats": jstate.batch_stats})
@@ -91,7 +98,10 @@ def test_two_train_steps_match_jax():
         # hold each tensor's difference against the size of its own update.
         n_off = n_all = 0
         for key, t in ours.items():
-            if "running" not in key:
+            if freeze_flownet and key.startswith("flownet."):
+                assert torch.equal(t, initial[key]), (k, key)
+                assert torch.equal(ref[key], initial[key]), (k, key)
+            elif "running" not in key:
                 diff = t.numpy() - ref[key].numpy()
                 off = np.abs(diff) > 0.1 * CFG["learning_rate"]
                 n_off += int(off.sum())

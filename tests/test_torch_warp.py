@@ -116,22 +116,100 @@ def test_flow_warp_matches_jax_at_odd_sizes(pad, c):
 
 
 @pytest.mark.parametrize("pad", ["border", "zeros"])
-def test_bilinear_sample_matches_jax(pad):
-    img = _img((2, 9, 11, 2))
-    cx, cy = _coords(_flow((2, 9, 11, 2), 4.0))
-    wgt = _img((2, 9, 11, 2), seed=7) - 0.5
+def test_flow_warp_bf16_features_match_jax(pad):
+    """A bf16 feature map (C > 8, PWC-Lite's warps) at 160 wide: JAX's gather
+    blends the bf16 values with f32 weights at f32 coordinates and returns f32.
+    The port must too (a bf16 grid would be off by up to 0.3 px here)."""
+    img = _img((2, 24, 160, 12))
+    flow = _flow((2, 24, 160, 2), 3.0)
+    ref = np.asarray(jwarp.flow_warp(jnp.asarray(img, jnp.bfloat16), jnp.asarray(flow), pad=pad))
+    ours = twarp.flow_warp(torch.from_numpy(img).bfloat16(), torch.from_numpy(flow), pad=pad)
+    assert ref.dtype == np.float32 and ours.dtype == torch.float32
+    # Values in [0, 1): the same bf16 inputs and f32 weights on both sides, but
+    # grid_sample normalizes the coordinates by (W-1)/2 and back, ~2e-5 px of f32
+    # rounding at 160 wide.
+    np.testing.assert_allclose(ours.numpy(), ref, atol=5e-5)
+
+
+# Image cotangent: f32 sums of up to a few dozen g * weight terms per source
+# pixel, |g| <= 1, taken in another order than the Pallas kernel's matmuls.
+TOL_DIMG = 1e-4
+
+
+@pytest.mark.parametrize("pad", ["border", "zeros"])
+@pytest.mark.parametrize("c", [2, 3])
+def test_warp_image_grad_matches_pallas(pad, c):
+    """Kernel 4's plain version, and autograd through flow_warp(grad_img=True),
+    against jax.grad of sum(sin(warp_pallas(img, cx, cy, need_dimg=True)))."""
+    img = _img((B, H, W, c)) - 0.5
+    flow = _flow((B, H, W, 2), 5.0 if pad == "border" else 9.0)
+    cx, cy = _coords(flow)
+    if pad == "border":
+        cx, cy = np.clip(cx, 0, W - 1), np.clip(cy, 0, H - 1)
 
     def jloss(im, x, y):
-        return jnp.sum(jwarp.bilinear_sample(im, x, y, pad=pad) * wgt)
+        return jnp.sum(jnp.sin(warp_pallas(im, x, y, True, True)))
 
-    jl, jgs = jax.value_and_grad(jloss, argnums=(0, 1, 2))(
+    jgi, jgx, jgy = jax.grad(jloss, argnums=(0, 1, 2))(
         jnp.asarray(img), jnp.asarray(cx), jnp.asarray(cy))
-    ts = [torch.from_numpy(a).requires_grad_(True) for a in (img, cx, cy)]
-    tl = (twarp.bilinear_sample(*ts, pad=pad) * torch.from_numpy(wgt)).sum()
+    ti, tx, ty = (torch.from_numpy(a) for a in (img, cx, cy))
+    g = torch.cos(wk.warp_fwd(ti, tx, ty))
+    dimg, dcx, dcy = wk.warp_bwd_dimg_plain(ti, tx, ty, g)
+    np.testing.assert_allclose(dimg.numpy(), np.asarray(jgi), atol=TOL_DIMG)
+    np.testing.assert_allclose(dcx.numpy(), np.asarray(jgx), atol=TOL_GRADS)
+    np.testing.assert_allclose(dcy.numpy(), np.asarray(jgy), atol=TOL_GRADS)
+
+    # The same gradients through the op: flow_warp differentiated in the image
+    # and the flow (d/dflow = d/dcoords where the border clamp lets it through).
+    ti = torch.from_numpy(img).requires_grad_(True)
+    tf = torch.from_numpy(flow).requires_grad_(True)
+    torch.sin(twarp.flow_warp(ti, tf, pad=pad, grad_img=True)).sum().backward()
+    np.testing.assert_allclose(ti.grad.numpy(), np.asarray(jgi), atol=TOL_DIMG)
+    inside = ((cx > 0) & (cx < W - 1)) if pad == "border" else np.ones_like(cx, bool)
+    np.testing.assert_allclose(tf.grad.numpy()[..., 0], np.where(inside, np.asarray(jgx), 0),
+                               atol=TOL_GRADS)
+
+
+@pytest.mark.parametrize("pad", ["border", "zeros"])
+@pytest.mark.parametrize("shape", [(2, 7, 9, 2), (1, 11, 5, 3)])
+def test_flow_warp_image_grad_matches_gather(pad, shape):
+    """flow_warp(grad_img=True), C <= 8, against jax.grad through JAX's
+    flow_warp, which takes the plain gather (bilinear_sample) at these sizes."""
+    img = _img(shape)
+    flow = _flow((*shape[:3], 2), 3.0)
+    wgt = _img(shape, seed=4) - 0.5
+
+    def jloss(im, f):
+        return jnp.sum(jwarp.flow_warp(im, f, pad=pad, grad_img=True) * wgt)
+
+    jl, (jgi, jgf) = jax.value_and_grad(jloss, argnums=(0, 1))(jnp.asarray(img), jnp.asarray(flow))
+    ti = torch.from_numpy(img).requires_grad_(True)
+    tf = torch.from_numpy(flow).requires_grad_(True)
+    tl = (twarp.flow_warp(ti, tf, pad=pad, grad_img=True) * torch.from_numpy(wgt)).sum()
     tl.backward()
     np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
-    for t, g in zip(ts, jgs):
-        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), atol=TOL_GRADS)
+    np.testing.assert_allclose(ti.grad.numpy(), np.asarray(jgi), atol=TOL_GRADS)
+    np.testing.assert_allclose(tf.grad.numpy(), np.asarray(jgf), atol=TOL_GRADS)
+
+
+def test_occu_mask_bidirection_matches_jax():
+    # A smooth flow12, and flow21 its negative plus noise: the check passes
+    # where the noise is small and fails elsewhere and where taps leave the frame.
+    rng = np.random.default_rng(6)
+    ys, xs = np.meshgrid(np.arange(40), np.arange(56), indexing="ij")
+    phase = rng.uniform(0, 2 * np.pi, (2, 1, 1, 2))
+    flow12 = (3.0 * np.sin(ys[None, ..., None] / 7.0 + xs[None, ..., None] / 9.0 + phase)
+              ).astype(np.float32)
+    flow21 = (-flow12 + rng.standard_normal((2, 40, 56, 2)) * 0.6).astype(np.float32)
+    ref = np.asarray(jwarp.occu_mask_bidirection(jnp.asarray(flow12), jnp.asarray(flow21)))
+    ours = twarp.occu_mask_bidirection(torch.from_numpy(flow12), torch.from_numpy(flow21))
+    # Equal wherever the check's two sides are not within 1e-4 of each other.
+    fw = np.asarray(jwarp.flow_warp(jnp.asarray(flow21), jnp.asarray(flow12), pad="zeros"))
+    lhs = np.sum((flow12 + fw) ** 2, -1)
+    rhs = 0.01 * (np.sum(flow12**2, -1) + np.sum(fw**2, -1)) + 0.5
+    clear = np.abs(lhs - rhs) > 1e-4
+    assert clear.mean() > 0.99 and 0.05 < ref.mean() < 0.95
+    np.testing.assert_array_equal(ours.numpy()[clear], ref[clear])
 
 
 @pytest.mark.parametrize("scale", [3.0, 12.0])
@@ -176,8 +254,9 @@ def test_cpu_wrappers_run_plain_versions_without_launching():
     torch.testing.assert_close(wk.warp_fwd(img, cx, cy), wk.warp_fwd_plain(img, cx, cy),
                                rtol=0, atol=0)
     wk.warp_bwd(img, cx, cy, img)
+    wk.warp_bwd_dimg(img, cx, cy, img)
     wk.splat(cx, cy, 8, 8)
-    assert wk.LAUNCHES == {"warp_fwd": 0, "warp_bwd": 0, "splat": 0}
+    assert wk.LAUNCHES == {"warp_fwd": 0, "warp_bwd": 0, "warp_bwd_dimg": 0, "splat": 0}
 
 
 def test_wrappers_reject_unsupported_inputs():
@@ -204,6 +283,24 @@ def test_warp_kernels_match_plain_on_card(cuda, dtype, tol):
     g = torch.from_numpy(_img((B, H, W, C), seed=9) - 0.5).to(cuda, dtype)
     for k, p in zip(wk.warp_bwd(img, cx, cy, g), wk.warp_bwd_plain(img, cx, cy, g)):
         torch.cuda.synchronize()
+        assert (k - p).abs().max() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [2, 3])
+def test_warp_bwd_dimg_kernel_matches_plain_on_card(cuda, dtype, c):
+    img = torch.from_numpy(_img((B, H, W, c))).to(cuda, dtype)
+    cx, cy = (torch.from_numpy(a).to(cuda) for a in _coords(_flow((B, H, W, 2), 9.0)))
+    g = torch.from_numpy(_img((B, H, W, c), seed=9) - 0.5).to(cuda, dtype)
+    ours = wk.warp_bwd_dimg(img, cx, cy, g)
+    torch.cuda.synchronize()
+    plain = wk.warp_bwd_dimg_plain(img, cx, cy, g)
+    # dimg: f32 atomics in a run-dependent order, then, for bf16 images, one
+    # rounding to bf16 on each side (|dimg| < 4: one bf16 ulp is at most 2^-6).
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert (ours[0].float() - plain[0].float()).abs().max() <= tol
+    for k, p in zip(ours[1:], plain[1:]):
         assert (k - p).abs().max() <= 1e-4
 
 

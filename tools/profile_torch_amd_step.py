@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where the port's AMD training step spends its time on one NVIDIA GPU.
 
-    python3 tools/profile_torch_amd_step.py [--steps 2] [--top 25]
+    python3 tools/profile_torch_amd_step.py [--dtype float32|bfloat16] [--steps 2] [--top 25]
 
 Runs the AMD recipe as ``chip_smoke.py`` sets it up (``configs/amd/amd.yaml``:
 ResNet-50 OS8, FCN head, PWC-Lite, unFlow loss, Adam) at batch 8 pairs of
-384^2 frames and flow_size 384x640 from seed 0, warms up 3 steps, then traces ``--steps``
+384^2 frames and flow_size 384x640 from seed 0, with the compute dtype
+``--dtype`` (f32 convolutions run in TF32, cuDNN's default), warms up 3
+steps, then traces ``--steps``
 steps with ``torch.profiler``. Prints the step time (host clock,
 synchronized), the device busy share (sum of kernel times over the traced
 wall time; kernels run on one stream, so they do not overlap), the device
@@ -26,7 +28,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-OURS = ("warp_fwd_kernel", "warp_bwd_kernel", "splat_kernel")
+OURS = ("warp_fwd_kernel", "warp_bwd_kernel", "warp_bwd_dimg_kernel", "splat_kernel")
 # Convolution and matmul kernels by name ("conv" but not "convert").
 GEMM = re.compile(r"gemm|xmma|cutlass|wgrad|dgrad|fprop|winograd|conv(?!ert)")
 
@@ -47,6 +49,7 @@ def _group(kernel_name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args()
@@ -61,7 +64,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    model = build_amd_model(amd_model_kwargs(), device="cuda", seed=0)
+    dtype = getattr(torch, args.dtype)
+    model = build_amd_model(amd_model_kwargs(), device="cuda", seed=0, dtype=dtype)
     state = create_train_state(TRAIN_CFG, model, steps_per_epoch=STEPS_PER_EPOCH)
     step = make_train_step()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -91,7 +95,8 @@ def main() -> int:
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    print(f"device {smi}; {args.steps} traced steps; {len(kernels)} kernel names traced")
+    print(f"device {smi}; {args.dtype}; {args.steps} traced steps; {len(kernels)} kernel names "
+          f"traced")
     print(f"step {step_ms:.2f} ms (host clock); device kernel time {total_ms / args.steps:.2f} ms "
           f"per step; busy share {total_ms / wall_ms:.3f}")
     print("per step by group (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in groups.items()))
@@ -99,7 +104,7 @@ def main() -> int:
         print(f"{_device_us(e) / 1e3 / args.steps:9.3f} ms/step {e.count // args.steps:6d} "
               f"calls/step  {_group(e.key):12s} {e.key[:100]}")
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "step_ms": step_ms,
+        "device": torch.cuda.get_device_name(0), "dtype": args.dtype, "step_ms": step_ms,
         "device_ms_per_step": total_ms / args.steps, "busy_share": total_ms / wall_ms,
         "groups_ms_per_step": groups,
         "top": [{"name": e.key, "ms_per_step": _device_us(e) / 1e3 / args.steps,

@@ -1,19 +1,28 @@
 #!/usr/bin/env python3
-"""How far faults planted in the kernels move chip_smoke.py's reference check.
+"""How far faults planted in the port move chip_smoke.py's card-vs-CPU checks.
 
     python3 tools/smoke_fault_check.py
 
-The reference check holds the AMD forward and a flownet weight gradient,
-and the unFlow loss and its flow gradient, on the card against the port's
-plain CPU path (small inputs, TF32 off). This script computes the CPU side
-once, then the card side sound and with one fault at a time planted in a
-kernel wrapper (CUDA tensors only, so the CPU side stays plain):
+chip_smoke's reference check holds the AMD forward and a flownet weight
+gradient, the unFlow loss and its flow gradient (with either occlusion
+mask), and the bf16 AMD forward on the card against the port's plain CPU
+path (small inputs, TF32 off); its image-gradient check holds the flow
+warp of the bidirectional occlusion mask and its gradients at the level-0
+shape. This script computes the CPU sides once, then the card sides sound
+and with one fault at a time planted at run time (CUDA tensors only, so
+the CPU side stays plain):
 
 * ``warp_bwd_swap``: dcx and dcy exchanged;
 * ``warp_bwd_no_dhat``: the one-sided derivative where a coordinate is an
   exact integer (the clamped border) instead of the TPU kernel's 0;
 * ``warp_fwd_shift``: samples taken half a pixel to the right;
-* ``splat_mirror``: each splat corner given its horizontal neighbour's weight.
+* ``splat_mirror``: each splat corner given its horizontal neighbour's weight;
+* ``dimg_mirror``: warp_bwd_dimg's image cotangent scattered to the
+  horizontally mirrored taps;
+* ``dimg_drop_corner``: warp_bwd_dimg's image cotangent without its
+  (y0+1, x0+1) tap;
+* ``grid_bf16``: PWC-Lite's feature warps sampling a bf16 map on a bf16
+  grid, in bf16 (the grid cast that the port had before it kept f32).
 
 Prints each case's readings beside chip_smoke's limits and which of them
 catch it, then one JSON line. Needs a CUDA device; imports no JAX.
@@ -39,7 +48,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
+    import torch.nn.functional as F
+
     fwd, bwd, splat = wk.warp_fwd, wk.warp_bwd, wk.splat
+    bwd_dimg, grid_sample = wk.warp_bwd_dimg, warp_ops._grid_sample_nhwc
 
     def bwd_swap(img, cx, cy, g):
         dcx, dcy = bwd(img, cx, cy, g)
@@ -65,27 +77,64 @@ def main() -> int:
             tx = torch.where(tx > fl, 2 * fl + 1 - tx, tx)
         return splat(tx, ty, h, w)
 
+    def dimg_mirror(img, cx, cy, g):
+        dimg, dcx, dcy = bwd_dimg(img, cx, cy, g)
+        if img.is_cuda:
+            fl = torch.floor(cx)
+            dimg = bwd_dimg(img, torch.where(cx > fl, 2 * fl + 1 - cx, cx), cy, g)[0]
+        return dimg, dcx, dcy
+
+    def dimg_drop_corner(img, cx, cy, g):
+        dimg, dcx, dcy = bwd_dimg(img, cx, cy, g)
+        if not img.is_cuda:
+            return dimg, dcx, dcy
+        b, h, w, c = img.shape
+        offs, valid, ax, ay = wk._taps(cx, cy, h, w)
+        w11 = torch.where(valid[3], ay * ax, torch.zeros_like(ax)).reshape(b, -1, 1)
+        idx = offs[3].clamp(0, h * w - 1).reshape(b, -1, 1).expand(-1, -1, c)
+        corner = torch.zeros(b, h * w, c, device=img.device).scatter_add_(
+            1, idx, g.float().reshape(b, -1, c) * w11)
+        return (dimg.float() - corner.reshape(img.shape)).to(img.dtype), dcx, dcy
+
+    def grid_bf16(img, x, y, pad):
+        if not img.is_cuda:
+            return grid_sample(img, x, y, pad)
+        h, w = img.shape[1:3]
+        grid = torch.stack([x * (2.0 / (w - 1)) - 1.0, y * (2.0 / (h - 1)) - 1.0], dim=-1)
+        out = F.grid_sample(img.permute(0, 3, 1, 2), grid.to(img.dtype), mode="bilinear",
+                            padding_mode=pad, align_corners=True)
+        return out.permute(0, 2, 3, 1)
+
     faults = {"sound": {}, "warp_bwd_swap": {"warp_bwd": bwd_swap},
               "warp_bwd_no_dhat": {"warp_bwd": bwd_no_dhat},
-              "warp_fwd_shift": {"warp_fwd": fwd_shift}, "splat_mirror": {"splat": splat_mirror}}
+              "warp_fwd_shift": {"warp_fwd": fwd_shift}, "splat_mirror": {"splat": splat_mirror},
+              "dimg_mirror": {"warp_bwd_dimg": dimg_mirror},
+              "dimg_drop_corner": {"warp_bwd_dimg": dimg_drop_corner},
+              "grid_bf16": {"_grid_sample_nhwc": grid_bf16}}
+    originals = {(wk, "warp_fwd"): fwd, (wk, "warp_bwd"): bwd, (wk, "splat"): splat,
+                 (wk, "warp_bwd_dimg"): bwd_dimg, (warp_ops, "splat"): splat,
+                 (warp_ops, "_grid_sample_nhwc"): grid_sample}
     cpu = cs.reference_forward(torch, "cpu")
+    cpu_img = cs.image_grad_readings(torch, "cpu")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    print(f"device {smi}; limits {cs.REF_LIMITS}")
+    print(f"device {smi}; limits {cs.REF_LIMITS} {cs.IMG_LIMITS}")
     out = {}
     for case, patch in faults.items():
         for name, fn in patch.items():
-            setattr(wk, name, fn)
+            setattr(warp_ops if name == "_grid_sample_nhwc" else wk, name, fn)
             if name == "splat":
                 warp_ops.splat = fn
         try:
             errs = cs.reference_errors(cpu, cs.reference_forward(torch, "cuda"))
+            img_errs = cs.image_grad_errors(cpu_img, cs.image_grad_readings(torch, "cuda"))
         finally:
-            wk.warp_fwd, wk.warp_bwd, wk.splat = fwd, bwd, splat
-            warp_ops.splat = splat
-        out[case] = {**errs, "caught_by": cs.reference_failures(errs)}
-        print(f"{case:17s} " + "  ".join(f"{k} {v:.3e}" for k, v in errs.items())
-              + f"  caught by {out[case]['caught_by'] or 'nothing'}")
+            for (mod, name), fn in originals.items():
+                setattr(mod, name, fn)
+        caught = cs.reference_failures(errs) + cs.image_grad_failures(img_errs)
+        out[case] = {**errs, **img_errs, "caught_by": caught}
+        print(f"{case:17s} " + "  ".join(f"{k} {v:.3e}" for k, v in {**errs, **img_errs}.items())
+              + f"  caught by {caught or 'nothing'}", flush=True)
     print(json.dumps({"device": smi, "cases": out}))
     return 0
 
