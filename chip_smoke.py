@@ -9,6 +9,11 @@ Phases, each timed:
                 ``rcf_tpu_torch/build/``;
 2. kernels    - each kernel against its plain PyTorch version on the card, at
                 the AMD level-0 shapes (B=8, 384x640), images in f32 and bf16;
+                warp_fwd and warp_bwd also at ragged shapes (B=3, H in {1,
+                13}, W in {1, 3, 77}, C in 1..5, pad "border" and "zeros",
+                f32 and bf16) at the same tolerances: threads past the edge, each
+                compiled channel count, the generic instance, the batch
+                boundary;
 3. step       - three AMD training steps (ResNet-50 OS8 + FCN mask head +
                 PWC-Lite + unFlow loss, Adam) at batch 8 pairs of 384^2
                 frames, flow_size 384x640, random weights from a seed, in f32
@@ -28,7 +33,25 @@ Phases, each timed:
                 and the bf16 AMD forward; on the card against the port's plain
                 CPU path (which the tests hold to the JAX package), TF32 off;
 7. timing     - each kernel, its plain version and a PyTorch library call at
-                the level-0 shape, with CUDA events.
+                the level-0 shape on i.i.d. flows (N(0, 5^2) per pixel), with
+                CUDA events. ``ms``, ``library_ms``, ``plain_ms``: a loop of
+                20 eager calls on one input set (the readings of earlier
+                versions of this script), which is how the step calls them,
+                and which counts the host's time to issue a call where that
+                is longer than the call. ``ms_device``,
+                ``library_ms_device``: device time alone, on inputs the L2
+                does not hold (the calls replayed from a CUDA graph, round
+                robin over input sets of more than twice the L2 in all). For
+                warp_fwd and warp_bwd also ``ms_smooth``,
+                ``library_ms_smooth``: device time, as ``ms_device``, on
+                smooth flows (per map N(0, 8^2) drawn at (H/4, W/4) and
+                bilinearly upsampled x4, as the step's flows are predicted at
+                a quarter of the resolution); and a ``warp_timing`` line with
+                both kernels and their library calls, device time, at the
+                step's four level shapes (384x640, 192x320, 96x160, 48x80;
+                B=8, C=3) on both flow kinds in f32, and at level 0 in bf16
+                (the library on bf16 NCHW with a bf16 grid), each with its
+                bound.
 
 Prints a ``{"kernels": [...]}`` line, the f32 and bf16 step times and the
 phase seconds, the card's name and power limit, and as the last line
@@ -48,6 +71,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 F32_FLOPS = 67e12           # H100 SXM float32 rate outside the tensor cores
+L2_BYTES = 50 * 2**20       # H100 SXM L2
 
 B, H, W, C = 8, 384, 640, 3  # AMD level 0: 8 pairs, flow_size 384x640, RGB
 STEPS = 3
@@ -140,13 +164,25 @@ TRAIN_CFG = {"optimizer": "adam", "learning_rate": 1e-4, "weight_decay": 1e-6, "
 STEPS_PER_EPOCH = 100
 
 
-def level0_inputs(torch, dtype, gen, scale=5.0, b=B):
-    """img [b,H,W,C] in [0,1), non-integer absolute coords cx, cy [b,H,W] f32."""
+def level0_inputs(torch, dtype, gen, scale=5.0, b=B, h=H, w=W, c=C, smooth=False):
+    """img [b,h,w,c] in [0,1), non-integer absolute coords cx, cy [b,h,w] f32.
+
+    The flow is i.i.d. N(0, scale^2) per pixel, or, with ``smooth``, N(0, 8^2)
+    drawn at (h/4, w/4) and bilinearly upsampled x4, as the step's flows are
+    predicted at a quarter of the resolution and upsampled.
+    """
+    import torch.nn.functional as F
+
     dev = "cuda"
-    img = torch.rand(b, H, W, C, generator=gen, device=dev).to(dtype)
-    fl = torch.randn(b, H, W, 2, generator=gen, device=dev) * scale
-    ys = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
-    xs = torch.arange(W, device=dev, dtype=torch.float32)[None, :]
+    img = torch.rand(b, h, w, c, generator=gen, device=dev).to(dtype)
+    if smooth:
+        fl = torch.randn(b, 2, max(h // 4, 1), max(w // 4, 1), generator=gen, device=dev) * 8.0
+        fl = F.interpolate(fl, size=(h, w), mode="bilinear", align_corners=True)
+        fl = fl.permute(0, 2, 3, 1)
+    else:
+        fl = torch.randn(b, h, w, 2, generator=gen, device=dev) * scale
+    ys = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    xs = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
     return img, xs + fl[..., 0], ys + fl[..., 1]
 
 
@@ -171,6 +207,46 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cold_sets(n_bytes: int) -> int:
+    """Input sets of ``n_bytes`` each that a round robin needs so that a set's
+    lines have left the L2 (more than twice its size passes) before its next call."""
+    return 1 + math.ceil(2 * L2_BYTES / n_bytes)
+
+
+def graph_ms(torch, fns, iters: int = 20, reps: int = 5) -> float:
+    """Device time of one call on inputs the L2 does not hold: ``fns`` are the
+    same call on ``cold_sets`` input sets, captured round robin in one CUDA
+    graph (``iters`` calls or one per set, whichever is more) and replayed
+    ``reps`` times back to back, CUDA events around the replays.
+
+    Unlike ``cuda_ms`` it leaves out the host's time to issue each call (the
+    Python wrapper, the dispatcher), which a fast kernel does not hide.
+    """
+    n = max(iters, len(fns))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            fns[i % len(fns)]()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (n * reps)
+    del graph
+    return ms
 
 
 def nbytes(*ts) -> int:
@@ -208,6 +284,7 @@ def phase_kernels(torch, wk) -> dict:
             raise RuntimeError(f"warp kernels disagree with their plain versions in {dn}")
         if dtype == torch.float32:
             errs["warp_fwd"], errs["warp_bwd"] = e_fwd, e_bwd
+    check_warp_ragged(torch, wk, gen)
     errs["warp_bwd_dimg"] = check_warp_bwd_dimg(torch, wk, gen)
     # The splat sees both flow directions batched: 2B maps.
     _, tx, ty = level0_inputs(torch, torch.float32, gen, b=2 * B)
@@ -219,6 +296,44 @@ def phase_kernels(torch, wk) -> dict:
         raise RuntimeError("splat kernel disagrees with its plain version")
     errs["splat"] = e_splat
     return errs
+
+
+RAGGED_B, RAGGED_H, RAGGED_W, RAGGED_C = 3, (1, 13), (1, 3, 77), (1, 2, 3, 4, 5)
+
+
+def check_warp_ragged(torch, wk, gen) -> None:
+    """warp_fwd and warp_bwd vs their plain versions at ragged shapes, at the
+    level-0 tolerances: widths and heights that are no multiple of the 32 x 8
+    tile (threads past the image return), each compiled channel count (1-4)
+    and the generic instance (5), three planes (the batch boundary), f32 and
+    bf16, pad "border" (coordinates clamped) and "zeros" (unclamped, taps
+    leave the image)."""
+    worst, failed = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for h in RAGGED_H:
+            for w in RAGGED_W:
+                for c in RAGGED_C:
+                    img, cx, cy = level0_inputs(torch, dtype, gen, scale=2.0, b=RAGGED_B, h=h,
+                                                w=w, c=c)
+                    g = torch.randn(RAGGED_B, h, w, c, generator=gen, device="cuda").to(dtype)
+                    for pad, (x, y) in (("zeros", (cx, cy)),
+                                        ("border", (cx.clamp(0, w - 1), cy.clamp(0, h - 1)))):
+                        out = wk.warp_fwd(img, x, y)
+                        dcx, dcy = wk.warp_bwd(img, x, y, g)
+                        torch.cuda.synchronize()
+                        pcx, pcy = wk.warp_bwd_plain(img, x, y, g)
+                        e = {"warp_fwd": max_err(out, wk.warp_fwd_plain(img, x, y)),
+                             "warp_bwd": max(max_err(dcx, pcx), max_err(dcy, pcy))}
+                        for k, v in e.items():
+                            worst[(k, dn)] = max(worst.get((k, dn), 0.0), v)
+                            if not v <= TOL[(k, dn)]:
+                                failed.append(f"{k} {dn} {RAGGED_B}x{h}x{w}x{c} {pad}: {v:.3e}")
+    log("kernel ragged (B=3, H in {1,13}, W in {1,3,77}, C in 1..5, both pads): max_abs_err "
+        + ", ".join(f"{k} {dn} {v:.3e} (tol {TOL[(k, dn)]})" for (k, dn), v in worst.items()))
+    if failed:
+        raise RuntimeError("warp kernels disagree with their plain versions at ragged shapes: "
+                           + "; ".join(failed[:10]))
 
 
 def check_warp_bwd_dimg(torch, wk, gen) -> float:
@@ -449,72 +564,162 @@ def phase_reference(torch) -> None:
         raise RuntimeError(f"the card disagrees with the CPU path: {failed}")
 
 
-def phase_timing(torch, wk, counts: dict, errs: dict) -> list:
+def warp_calls(torch, wk, img, cx, cy, g) -> dict:
+    """name -> (kernel call, library call, bytes, operations) for warp_fwd and warp_bwd.
+
+    The library yardsticks: ``F.grid_sample`` and its backward for the grid
+    alone (dgrid = (dcx, dcy) times (W-1)/2, (H-1)/2) on the same image
+    (NCHW) and grid. The grid takes the image's dtype (grid_sample asks for
+    one dtype), so in bf16 the library reads a bf16 grid where the kernels
+    read f32 coordinates.
+    """
     import torch.nn.functional as F
 
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    img, cx, cy = level0_inputs(torch, torch.float32, gen)
-    cx, cy = cx.clamp(0, W - 1), cy.clamp(0, H - 1)
-    g = torch.randn(B, H, W, C, generator=gen, device="cuda")
-    _, tx, ty = level0_inputs(torch, torch.float32, gen, b=2 * B)
-    n_px = B * H * W
-
-    # Library yardsticks: grid_sample and its backward for the grid alone
-    # (dgrid = (dcx, dcy) times (W-1)/2, (H-1)/2) on the same image (NCHW) and
-    # grid; index_add_ of the splat's precomputed corner weights.
+    h, w, c = img.shape[1:]
+    n_px = img.shape[0] * h * w
     img_nchw = img.permute(0, 3, 1, 2).contiguous()
     g_nchw = g.permute(0, 3, 1, 2).contiguous()
-    grid = torch.stack([cx * (2.0 / (W - 1)) - 1.0, cy * (2.0 / (H - 1)) - 1.0], dim=-1)
-    offs, valid, ax, ay = wk._taps(tx, ty, H, W)
-    wts = ((1 - ay) * (1 - ax), (1 - ay) * ax, ay * (1 - ax), ay * ax)
-    base = (torch.arange(2 * B, device="cuda") * H * W)[:, None, None]
-    idx = torch.cat([(o.clamp(0, H * W - 1) + base).flatten() for o in offs])
-    val = torch.cat([torch.where(v, w_, torch.zeros_like(w_)).flatten()
-                     for v, w_ in zip(valid, wts)])
-    dens = torch.zeros(2 * B * H * W, device="cuda")
+    grid = torch.stack([cx * (2.0 / (w - 1)) - 1.0, cy * (2.0 / (h - 1)) - 1.0],
+                       dim=-1).to(img.dtype)
+    return {
+        "warp_fwd": (lambda: wk.warp_fwd(img, cx, cy),
+                     lambda: F.grid_sample(img_nchw, grid, mode="bilinear",
+                                           padding_mode="zeros", align_corners=True),
+                     nbytes(img, cx, cy, img), n_px * (10 + 9 * c)),
+        "warp_bwd": (lambda: wk.warp_bwd(img, cx, cy, g),
+                     lambda: torch.ops.aten.grid_sampler_2d_backward(
+                         g_nchw, img_nchw, grid, 0, 0, True, [False, True]),
+                     nbytes(img, cx, cy, g, cx, cy), n_px * (12 + 14 * c)),
+    }
 
-    # warp_bwd_dimg where the system calls it: a flow (C=2), pad="zeros", coordinates
-    # unclamped; the library call gives both the image and the grid gradient.
-    fl = torch.randn(B, H, W, 2, generator=gen, device="cuda") * 5.0
-    _, zx, zy = level0_inputs(torch, torch.float32, gen)
-    g2 = torch.randn(B, H, W, 2, generator=gen, device="cuda")
-    fl_nchw = fl.permute(0, 3, 1, 2).contiguous()
-    g2_nchw = g2.permute(0, 3, 1, 2).contiguous()
-    zgrid = torch.stack([zx * (2.0 / (W - 1)) - 1.0, zy * (2.0 / (H - 1)) - 1.0], dim=-1)
 
+def warp_set(torch, wk, gen, dtype, h, w, smooth: bool) -> dict:
+    """warp_calls on one fresh input set (B=8, C=3, border coordinates)."""
+    img, cx, cy = level0_inputs(torch, dtype, gen, h=h, w=w, smooth=smooth)
+    cx, cy = cx.clamp(0, w - 1), cy.clamp(0, h - 1)
+    g = torch.randn(B, h, w, C, generator=gen, device="cuda").to(dtype)
+    return warp_calls(torch, wk, img, cx, cy, g)
+
+
+LEVELS = ((384, 640), (192, 320), (96, 160), (48, 80))  # the step's warp shapes
+
+
+def time_warps(torch, wk, gen, dtype, h, w, smooth: bool) -> dict:
+    """warp_fwd and warp_bwd against their library calls, device time on
+    ``cold_sets`` input sets: name -> {"ms_device", "library_ms_device", "bound_ms"}."""
+    sets = [warp_set(torch, wk, gen, dtype, h, w, smooth)]
+    sets += [warp_set(torch, wk, gen, dtype, h, w, smooth)
+             for _ in range(cold_sets(sets[0]["warp_fwd"][2]) - 1)]
+    return {name: {"ms_device": graph_ms(torch, [s[name][0] for s in sets]),
+                   "library_ms_device": graph_ms(torch, [s[name][1] for s in sets]),
+                   "bound_ms": bound(*sets[0][name][2:])[0]}
+            for name in sets[0]}
+
+
+def phase_warp_timing(torch, wk) -> dict:
+    """The device readings beyond the level-0 rows: warp_fwd and warp_bwd at
+    the step's four level shapes on both flow kinds (f32), and at level 0 in
+    bf16. Returns the level-0 f32 smooth readings by name."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sets = [("float32", hw, kind) for hw in LEVELS for kind in ("iid", "smooth")]
+    sets += [("bfloat16", LEVELS[0], kind) for kind in ("iid", "smooth")]
+    readings = []
+    for dn, (h, w), kind in sets:
+        res = time_warps(torch, wk, gen, getattr(torch, dn), h, w, kind == "smooth")
+        for name, r in res.items():
+            readings.append({"name": name, "dtype": dn, "h": h, "w": w, "flow": kind, **r})
+            ms, lib = r["ms_device"], r["library_ms_device"]
+            log(f"timing {name} {dn} {B}x{h}x{w}x{C} {kind}: device {ms:.4f} ms, library "
+                f"{lib:.4f} ms ({lib / ms:.2f}x), bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_ms'] / ms:.0%} of it)")
+    print(json.dumps({"warp_timing": readings}), flush=True)
+    return {r["name"]: r for r in readings
+            if r["dtype"] == "float32" and (r["h"], r["w"]) == LEVELS[0] and r["flow"] == "smooth"}
+
+
+def level0_specs(torch, wk, gen) -> dict:
+    """name -> make(): a fresh level-0 input set for the kernel, returning its
+    (kernel call, plain call, library call, bytes, operations). The library
+    yardsticks: warp_calls' for the warps; ``index_add_`` of the splat's
+    precomputed corner weights; for warp_bwd_dimg, where the system calls it
+    (a flow, C=2, pad="zeros", coordinates unclamped), the backward of
+    ``grid_sample`` with both the image and the grid gradient."""
+    n_px = B * H * W
+
+    def warp(name):
+        def make():
+            img, cx, cy = level0_inputs(torch, torch.float32, gen)
+            cx, cy = cx.clamp(0, W - 1), cy.clamp(0, H - 1)
+            g = torch.randn(B, H, W, C, generator=gen, device="cuda")
+            kern, lib, n_bytes, flops = warp_calls(torch, wk, img, cx, cy, g)[name]
+            plain = ((lambda: wk.warp_fwd_plain(img, cx, cy)) if name == "warp_fwd"
+                     else (lambda: wk.warp_bwd_plain(img, cx, cy, g)))
+            return kern, plain, lib, n_bytes, flops
+        return make
+
+    def splat():
+        _, tx, ty = level0_inputs(torch, torch.float32, gen, b=2 * B)
+        offs, valid, ax, ay = wk._taps(tx, ty, H, W)
+        wts = ((1 - ay) * (1 - ax), (1 - ay) * ax, ay * (1 - ax), ay * ax)
+        base = (torch.arange(2 * B, device="cuda") * H * W)[:, None, None]
+        idx = torch.cat([(o.clamp(0, H * W - 1) + base).flatten() for o in offs])
+        val = torch.cat([torch.where(v, w_, torch.zeros_like(w_)).flatten()
+                         for v, w_ in zip(valid, wts)])
+        dens = torch.zeros(2 * B * H * W, device="cuda")
+        return (lambda: wk.splat(tx, ty, H, W), lambda: wk.splat_plain(tx, ty, H, W),
+                lambda: dens.zero_().index_add_(0, idx, val),
+                nbytes(tx, ty) + 2 * B * H * W * 4, 2 * n_px * 20)
+
+    def dimg():
+        fl = torch.randn(B, H, W, 2, generator=gen, device="cuda") * 5.0
+        _, zx, zy = level0_inputs(torch, torch.float32, gen)
+        g2 = torch.randn(B, H, W, 2, generator=gen, device="cuda")
+        fl_nchw = fl.permute(0, 3, 1, 2).contiguous()
+        g2_nchw = g2.permute(0, 3, 1, 2).contiguous()
+        zgrid = torch.stack([zx * (2.0 / (W - 1)) - 1.0, zy * (2.0 / (H - 1)) - 1.0], dim=-1)
+        return (lambda: wk.warp_bwd_dimg(fl, zx, zy, g2),
+                lambda: wk.warp_bwd_dimg_plain(fl, zx, zy, g2),
+                lambda: torch.ops.aten.grid_sampler_2d_backward(g2_nchw, fl_nchw, zgrid, 0, 0,
+                                                                True, [True, True]),
+                nbytes(fl, zx, zy, g2, fl, zx, zy), n_px * (12 + 22 * 2))
+
+    return {"warp_fwd": warp("warp_fwd"), "warp_bwd": warp("warp_bwd"), "splat": splat,
+            "warp_bwd_dimg": dimg}
+
+
+def phase_timing(torch, wk, counts: dict, errs: dict) -> list:
+    """The ``kernels`` rows at the level-0 shape, i.i.d. flows. ``ms``,
+    ``library_ms`` and ``plain_ms``: an eager loop of calls on one input set
+    (``cuda_ms``), as earlier versions of this script read them. ``ms_device``, ``library_ms_device``:
+    device time on cold inputs (``graph_ms``). For the warps also
+    ``ms_smooth``, ``library_ms_smooth``: device time on smooth flows."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
-    specs = [
-        ("warp_fwd", lambda: wk.warp_fwd(img, cx, cy), lambda: wk.warp_fwd_plain(img, cx, cy),
-         lambda: F.grid_sample(img_nchw, grid, mode="bilinear", padding_mode="zeros",
-                               align_corners=True),
-         nbytes(img, cx, cy, img), n_px * (10 + 9 * C)),
-        ("warp_bwd", lambda: wk.warp_bwd(img, cx, cy, g),
-         lambda: wk.warp_bwd_plain(img, cx, cy, g),
-         lambda: torch.ops.aten.grid_sampler_2d_backward(g_nchw, img_nchw, grid, 0, 0, True,
-                                                         [False, True]),
-         nbytes(img, cx, cy, g, cx, cy), n_px * (12 + 14 * C)),
-        ("splat", lambda: wk.splat(tx, ty, H, W), lambda: wk.splat_plain(tx, ty, H, W),
-         lambda: dens.zero_().index_add_(0, idx, val),
-         nbytes(tx, ty) + 2 * B * H * W * 4, 2 * n_px * 20),
-        ("warp_bwd_dimg", lambda: wk.warp_bwd_dimg(fl, zx, zy, g2),
-         lambda: wk.warp_bwd_dimg_plain(fl, zx, zy, g2),
-         lambda: torch.ops.aten.grid_sampler_2d_backward(g2_nchw, fl_nchw, zgrid, 0, 0, True,
-                                                         [True, True]),
-         nbytes(fl, zx, zy, g2, fl, zx, zy), n_px * (12 + 22 * 2)),
-    ]
-    for name, kern, plain, lib, n_bytes, flops in specs:
+    for name, make in level0_specs(torch, wk, gen).items():
+        kern, plain, lib, n_bytes, flops = make()
         ms = cuda_ms(torch, kern)
         plain_ms = cuda_ms(torch, plain, iters=5)
-        lib_ms = cuda_ms(torch, lib) if lib is not None else None
+        lib_ms = cuda_ms(torch, lib)
+        sets = [(kern, lib)] + [make()[0:3:2] for _ in range(cold_sets(n_bytes) - 1)]
+        ms_dev = graph_ms(torch, [k for k, _ in sets])
+        lib_dev = graph_ms(torch, [l_ for _, l_ in sets])
+        del sets
         b_ms, b_by = bound(n_bytes, flops)
         rows.append({
             "name": name, "route": "cuda", "source": "rcf_tpu_torch/csrc/warp.cu",
             "replaces": REPLACES[name], "launches": counts[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "ms_device": ms_dev, "library_ms_device": lib_dev,
         })
         log(f"timing {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, plain "
-            f"{plain_ms:.4f} ms, library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms)")
+            f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms); device, cold inputs "
+            f"{ms_dev:.4f} ms, library {lib_dev:.4f} ms")
+    smooth = phase_warp_timing(torch, wk)
+    for row in rows:
+        if row["name"] in smooth:
+            r = smooth[row["name"]]
+            row.update(ms_smooth=r["ms_device"], library_ms_smooth=r["library_ms_device"])
     return rows
 
 
@@ -539,10 +744,9 @@ def main() -> int:
     so = wk.build()
     phases["build"] = time.perf_counter() - t0
     log(f"build: {phases['build']:.1f} s -> {so}")
-    with open(so[:-3] + ".log") as f:
-        for line in f:
-            if "registers" in line or "spill" in line:
-                log("  ptxas: " + line.strip())
+    for r in wk.ptxas_report(so):
+        log(f"  ptxas: {r['kernel']} {r['dtype']} C={r['c']}: {r.get('registers')} registers, "
+            f"spill {r.get('spill_stores')}/{r.get('spill_loads')} bytes (stores/loads)")
 
     t0 = time.perf_counter()
     errs = phase_kernels(torch, wk)

@@ -23,14 +23,26 @@
 //   splat:     out[b,y,x] += hat(ty-y) * hat(tx-x) for the 4 corners of each source
 //              pixel, corners outside [0,h) x [0,w) dropped.
 //
-// Design: one thread per output pixel (per source pixel for the splat), a direct
-// 4-tap gather from the NHWC image, looping over the channels. Weights and sums
-// are f32 for f32 and bf16 images alike (the TPU kernel casts its hat weights to
-// bf16; the difference is about 2^-9 relative). The splat accumulates with f32
-// atomicAdd, so its sums are taken in an order that changes from run to run, and
-// so does warp_bwd_dimg's image cotangent (f32 atomicAdd into a buffer the caller
-// zero-fills; the TPU kernel's band-window matmul overlap-add does not carry over:
-// Hopper blocks run in no order and share no accumulator).
+// Design. warp_fwd and warp_bwd: one thread per output pixel, a block on a 2-D
+// tile of 32 x 8 pixels, so that the vertical taps (rows y0 and y0+1) of the
+// tile's rows meet in L1 and a warp's gathers fall on one row's neighbouring
+// pixels. The channel count is a template argument (instances for C = 1..4, one
+// generic instance above), so the 4*C tap loads (__ldg, bf16 too) issue before the
+// first FMA. The batch is blockIdx.z with a 64-bit plane base taken once; offsets
+// inside a plane are 32-bit (the wrapper raises where H*W*C does not fit). The
+// streams (cx, cy, g in; out, dcx, dcy out) move evict-first, coalesced across the
+// warp. On the H100 this beat or tied the other designs timed against it
+// (PERF.md): 1-D runs of one row; 2 to 8 pixels a thread, adjacent with vector
+// I/O or strided; out and g staged through shared memory as vectors; default
+// caching of the streams.
+// warp_bwd_dimg and the splat: one thread per output (source) pixel in 1-D blocks,
+// a direct 4-tap gather with 64-bit offsets, looping over the channels.
+// Weights and sums are f32 for f32 and bf16 images alike (the TPU kernel casts its
+// hat weights to bf16; the difference is about 2^-9 relative). The splat
+// accumulates with f32 atomicAdd, so its sums are taken in an order that changes
+// from run to run, and so does warp_bwd_dimg's image cotangent (f32 atomicAdd into
+// a buffer the caller zero-fills; the TPU kernel's band-window matmul overlap-add
+// does not carry over: Hopper blocks run in no order and share no accumulator).
 //
 // Bound on the H100 (3.35 TB/s, bytes over operations by far): at the AMD level-0
 // shape B=8, H x W = 384 x 640, C=3, f32 images,
@@ -42,9 +54,9 @@
 //             94.4 MB, 28.2 us with the dimg buffer's zero fill; at C=3, 102.2 MB
 //             without the fill, 30.5 us. Its atomics land on 4 neighbouring taps
 //             per pixel and rarely collide for smooth flows.
-// The gather touches each source pixel about once for smooth flows, and the
-// neighbouring threads of a warp read neighbouring pixels, so the loads coalesce
-// through L1/L2; nothing is staged in shared memory.
+// The gather touches each source pixel about once for smooth flows, so a tile's
+// taps come from L1/L2 and only the streams and the image's first touch reach
+// device memory.
 //
 // C interface, bound with ctypes: every entry point launches on the given stream,
 // does not synchronise, and returns cudaGetLastError() (0 on success).
@@ -55,23 +67,44 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // warp_bwd_dimg and the splat: 1-D blocks
+
+constexpr int kBX = 32;  // warp_fwd, warp_bwd: pixels (threads) per block along x
+constexpr int kTY = 8;   // and rows per block
+// cx, cy, g, out, dcx, dcy are each touched once: load and store them evict-first
+// (ld.global.cs / st.global.cs), so that they leave the image's lines in L2.
+constexpr bool kStream = true;
 
 __device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
+// A stream's loads and stores.
+__device__ __forceinline__ float load_s(const float* p) { return kStream ? __ldcs(p) : __ldg(p); }
+__device__ __forceinline__ float load_s(const __nv_bfloat16* p) {
+  return __bfloat162float(kStream ? __ldcs(p) : __ldg(p));
+}
+__device__ __forceinline__ void store_s(float* p, float v) {
+  if (kStream) __stcs(p, v); else *p = v;
+}
+__device__ __forceinline__ void store_s(__nv_bfloat16* p, float v) {
+  if (kStream) __stcs(p, __float2bfloat16(v)); else *p = __float2bfloat16(v);
+}
 
 // The four taps of a bilinear sample at (x, y). Validity is decided on the float
 // coordinates, so a far-out or non-finite coordinate never becomes an index.
+// I is the offset type: int inside one plane (warp_fwd, warp_bwd), int64_t else.
+template <typename I>
 struct Taps {
-  float ax, ay;           // fractional parts: weight of the +1 tap on each axis
-  int64_t o00, o01, o10, o11;  // pixel offsets in the [H, W] plane
+  float ax, ay;       // fractional parts: weight of the +1 tap on each axis
+  I o00, o01, o10, o11;  // pixel offsets in the [H, W] plane
   bool v00, v01, v10, v11;
 };
 
-__device__ __forceinline__ Taps make_taps(float x, float y, int h, int w) {
-  Taps t;
+template <typename I>
+__device__ __forceinline__ Taps<I> make_taps(float x, float y, int h, int w) {
+  Taps<I> t;
   const float xf = floorf(x), yf = floorf(y);
   t.ax = x - xf;
   t.ay = y - yf;
@@ -79,8 +112,8 @@ __device__ __forceinline__ Taps make_taps(float x, float y, int h, int w) {
   const bool vx1 = xf >= -1.f && xf <= (float)(w - 2);
   const bool vy0 = yf >= 0.f && yf <= (float)(h - 1);
   const bool vy1 = yf >= -1.f && yf <= (float)(h - 2);
-  const int64_t xi = (vx0 || vx1) ? (int64_t)xf : 0;
-  const int64_t yi = (vy0 || vy1) ? (int64_t)yf : 0;
+  const I xi = (vx0 || vx1) ? (I)xf : 0;
+  const I yi = (vy0 || vy1) ? (I)yf : 0;
   t.v00 = vy0 && vx0;
   t.v01 = vy0 && vx1;
   t.v10 = vy1 && vx0;
@@ -92,60 +125,103 @@ __device__ __forceinline__ Taps make_taps(float x, float y, int h, int w) {
   return t;
 }
 
-template <typename T>
-__device__ __forceinline__ float tap(const T* plane, int64_t off, bool valid, int c, int ch) {
+template <typename T, typename I>
+__device__ __forceinline__ float tap(const T* plane, I off, bool valid, int c, int ch) {
   return valid ? load_f(plane + off * c + ch) : 0.f;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-warp_fwd_kernel(const T* __restrict__ img, const float* __restrict__ cx,
-                const float* __restrict__ cy, T* __restrict__ out, int64_t n, int h, int w,
-                int c) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int64_t hw = (int64_t)h * w;
-  const T* plane = img + (i / hw) * hw * c;
-  const Taps t = make_taps(__ldg(cx + i), __ldg(cy + i), h, w);
-  const float bx = 1.f - t.ax, by = 1.f - t.ay;
-  for (int ch = 0; ch < c; ++ch) {
-    const float v00 = tap(plane, t.o00, t.v00, c, ch);
-    const float v01 = tap(plane, t.o01, t.v01, c, ch);
-    const float v10 = tap(plane, t.o10, t.v10, c, ch);
-    const float v11 = tap(plane, t.o11, t.v11, c, ch);
-    const float top = v00 * bx + v01 * t.ax;
-    const float bot = v10 * bx + v11 * t.ax;
-    store_f(out + i * c + ch, top * by + bot * t.ay);
+// ---------------------------------------------------------------- warp_fwd, warp_bwd
+
+// The pixel (x, y) of this thread in its plane; false past the image.
+__device__ __forceinline__ bool thread_pixel(int h, int w, int& x, int& y) {
+  x = blockIdx.x * kBX + threadIdx.x;
+  y = blockIdx.y * kTY + threadIdx.y;
+  return x < w && y < h;
+}
+
+// The 4*C tap values of one sample, all loads issued together.
+template <int C, typename T>
+__device__ __forceinline__ void gather(const T* plane, const Taps<int>& t, float (&v)[4][C]) {
+  const int o[4] = {t.o00 * C, t.o01 * C, t.o10 * C, t.o11 * C};
+  const bool ok[4] = {t.v00, t.v01, t.v10, t.v11};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) v[k][ch] = ok[k] ? load_f(plane + o[k] + ch) : 0.f;
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// C > 0: the channel count at compile time; C == 0: the generic instance, c channels.
+template <typename T, int C>
+__global__ void __launch_bounds__(kBX * kTY)
+warp_fwd_kernel(const T* __restrict__ img, const float* __restrict__ cx,
+                const float* __restrict__ cy, T* __restrict__ out, int h, int w, int c) {
+  int x, y;
+  if (!thread_pixel(h, w, x, y)) return;
+  const int64_t plane_px = (int64_t)blockIdx.z * h * w;
+  const int64_t i = plane_px + y * w + x;
+  const Taps<int> t = make_taps<int>(load_s(cx + i), load_s(cy + i), h, w);
+  const float bx = 1.f - t.ax, by = 1.f - t.ay;
+  if constexpr (C > 0) {
+    float v[4][C];
+    gather<C>(img + plane_px * C, t, v);
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) {
+      const float top = v[0][ch] * bx + v[1][ch] * t.ax;
+      const float bot = v[2][ch] * bx + v[3][ch] * t.ax;
+      store_s(out + i * C + ch, top * by + bot * t.ay);
+    }
+  } else {
+    const T* plane = img + plane_px * c;
+    for (int ch = 0; ch < c; ++ch) {
+      const float top = tap(plane, t.o00, t.v00, c, ch) * bx + tap(plane, t.o01, t.v01, c, ch) * t.ax;
+      const float bot = tap(plane, t.o10, t.v10, c, ch) * bx + tap(plane, t.o11, t.v11, c, ch) * t.ax;
+      store_s(out + i * c + ch, top * by + bot * t.ay);
+    }
+  }
+}
+
+template <typename T, int C>
+__global__ void __launch_bounds__(kBX * kTY)
 warp_bwd_kernel(const T* __restrict__ img, const float* __restrict__ cx,
                 const float* __restrict__ cy, const T* __restrict__ g,
-                float* __restrict__ dcx, float* __restrict__ dcy, int64_t n, int h, int w,
-                int c) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int64_t hw = (int64_t)h * w;
-  const T* plane = img + (i / hw) * hw * c;
-  const Taps t = make_taps(__ldg(cx + i), __ldg(cy + i), h, w);
+                float* __restrict__ dcx, float* __restrict__ dcy, int h, int w, int c) {
+  int x, y;
+  if (!thread_pixel(h, w, x, y)) return;
+  const int64_t plane_px = (int64_t)blockIdx.z * h * w;
+  const int64_t i = plane_px + y * w + x;
+  const Taps<int> t = make_taps<int>(load_s(cx + i), load_s(cy + i), h, w);
   const float bx = 1.f - t.ax, by = 1.f - t.ay;
   float sx = 0.f, sy = 0.f;
-  for (int ch = 0; ch < c; ++ch) {
-    const float gc = load_f(g + i * c + ch);
-    const float v00 = tap(plane, t.o00, t.v00, c, ch);
-    const float v01 = tap(plane, t.o01, t.v01, c, ch);
-    const float v10 = tap(plane, t.o10, t.v10, c, ch);
-    const float v11 = tap(plane, t.o11, t.v11, c, ch);
-    sx += gc * (by * (v01 - v00) + t.ay * (v11 - v10));
-    sy += gc * (bx * (v10 - v00) + t.ax * (v11 - v01));
+  if constexpr (C > 0) {
+    float v[4][C], gv[C];
+    gather<C>(img + plane_px * C, t, v);
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) gv[ch] = load_s(g + i * C + ch);
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) {
+      sx += gv[ch] * (by * (v[1][ch] - v[0][ch]) + t.ay * (v[3][ch] - v[2][ch]));
+      sy += gv[ch] * (bx * (v[2][ch] - v[0][ch]) + t.ax * (v[3][ch] - v[1][ch]));
+    }
+  } else {
+    const T* plane = img + plane_px * c;
+    for (int ch = 0; ch < c; ++ch) {
+      const float gc = load_s(g + i * c + ch);
+      const float v00 = tap(plane, t.o00, t.v00, c, ch);
+      const float v01 = tap(plane, t.o01, t.v01, c, ch);
+      const float v10 = tap(plane, t.o10, t.v10, c, ch);
+      const float v11 = tap(plane, t.o11, t.v11, c, ch);
+      sx += gc * (by * (v01 - v00) + t.ay * (v11 - v10));
+      sy += gc * (bx * (v10 - v00) + t.ax * (v11 - v01));
+    }
   }
   // _dhat: an exact-integer coordinate sits on the kink, where the TPU kernel's
   // derivative is 0 (a NaN coordinate propagates through the products above).
-  dcx[i] = t.ax == 0.f ? 0.f : sx;
-  dcy[i] = t.ay == 0.f ? 0.f : sy;
+  store_s(dcx + i, t.ax == 0.f ? 0.f : sx);
+  store_s(dcy + i, t.ay == 0.f ? 0.f : sy);
 }
+
+// ---------------------------------------------------------------- warp_bwd_dimg, splat
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -159,7 +235,7 @@ warp_bwd_dimg_kernel(const T* __restrict__ img, const float* __restrict__ cx,
   const int64_t base = (i / hw) * hw * c;
   const T* plane = img + base;
   float* dplane = dimg + base;
-  const Taps t = make_taps(__ldg(cx + i), __ldg(cy + i), h, w);
+  const Taps<int64_t> t = make_taps<int64_t>(__ldg(cx + i), __ldg(cy + i), h, w);
   const float bx = 1.f - t.ax, by = 1.f - t.ay;
   const float w00 = by * bx, w01 = by * t.ax, w10 = t.ay * bx, w11 = t.ay * t.ax;
   float sx = 0.f, sy = 0.f;
@@ -187,7 +263,7 @@ splat_kernel(const float* __restrict__ tx, const float* __restrict__ ty,
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float* plane = out + (i / src_hw) * (int64_t)h * w;
-  const Taps t = make_taps(__ldg(tx + i), __ldg(ty + i), h, w);
+  const Taps<int64_t> t = make_taps<int64_t>(__ldg(tx + i), __ldg(ty + i), h, w);
   const float bx = 1.f - t.ax, by = 1.f - t.ay;
   // A zero weight (integer coordinate) adds nothing; skipping it saves the atomic.
   const float w00 = by * bx, w01 = by * t.ax, w10 = t.ay * bx, w11 = t.ay * t.ax;
@@ -199,12 +275,24 @@ splat_kernel(const float* __restrict__ tx, const float* __restrict__ ty,
 
 inline unsigned int blocks_for(int64_t n) { return (unsigned int)((n + kThreads - 1) / kThreads); }
 
+// n = B*H*W pixels; the batch goes to gridDim.z.
+inline dim3 warp_grid(int64_t n, int h, int w) {
+  return dim3((unsigned int)((w + kBX - 1) / kBX),
+              (unsigned int)((h + kTY - 1) / kTY), (unsigned int)(n / ((int64_t)h * w)));
+}
+
+// The instance for c channels: C = c for 1..4, the generic instance (C = 0) above.
+inline int instance(int c) { return c >= 1 && c <= 4 ? c : 0; }
+
 template <typename T>
 int launch_warp_fwd(const void* img, const void* cx, const void* cy, void* out, int64_t n,
                     int h, int w, int c, void* stream) {
+  using Kernel = void (*)(const T*, const float*, const float*, T*, int, int, int);
+  const Kernel kernels[] = {warp_fwd_kernel<T, 0>, warp_fwd_kernel<T, 1>, warp_fwd_kernel<T, 2>,
+                            warp_fwd_kernel<T, 3>, warp_fwd_kernel<T, 4>};
   if (n > 0) {
-    warp_fwd_kernel<T><<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        (const T*)img, (const float*)cx, (const float*)cy, (T*)out, n, h, w, c);
+    kernels[instance(c)]<<<warp_grid(n, h, w), dim3(kBX, kTY), 0, (cudaStream_t)stream>>>(
+        (const T*)img, (const float*)cx, (const float*)cy, (T*)out, h, w, c);
   }
   return (int)cudaGetLastError();
 }
@@ -212,10 +300,14 @@ int launch_warp_fwd(const void* img, const void* cx, const void* cy, void* out, 
 template <typename T>
 int launch_warp_bwd(const void* img, const void* cx, const void* cy, const void* g, void* dcx,
                     void* dcy, int64_t n, int h, int w, int c, void* stream) {
+  using Kernel = void (*)(const T*, const float*, const float*, const T*, float*, float*, int,
+                          int, int);
+  const Kernel kernels[] = {warp_bwd_kernel<T, 0>, warp_bwd_kernel<T, 1>, warp_bwd_kernel<T, 2>,
+                            warp_bwd_kernel<T, 3>, warp_bwd_kernel<T, 4>};
   if (n > 0) {
-    warp_bwd_kernel<T><<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+    kernels[instance(c)]<<<warp_grid(n, h, w), dim3(kBX, kTY), 0, (cudaStream_t)stream>>>(
         (const T*)img, (const float*)cx, (const float*)cy, (const T*)g, (float*)dcx,
-        (float*)dcy, n, h, w, c);
+        (float*)dcy, h, w, c);
   }
   return (int)cudaGetLastError();
 }

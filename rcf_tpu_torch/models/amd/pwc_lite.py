@@ -47,6 +47,20 @@ def _lrelu(x):
     return F.leaky_relu(x, 0.1)
 
 
+def mask_pool(feat: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mask-average-pooled features [B, M, C] f32 of feat [B, C, h, w] under mask [B, h, w, M].
+
+    As JAX does it: the mask is cast to the feature dtype for the product,
+    which accumulates in f32, and the denominator is the f32 sum of the
+    uncast mask (for bf16 features the mask rounds to bf16 in the product).
+    """
+    b, c, h, w = feat.shape
+    mflat = mask.reshape(b, h * w, mask.shape[-1]).float()
+    pooled = torch.einsum("bcp,bpm->bmc", feat.reshape(b, c, h * w).float(),
+                          mflat.to(feat.dtype).float())
+    return pooled / mflat.sum(dim=1)[..., None]
+
+
 class FeatureExtractor(nn.Module):
     def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -89,11 +103,9 @@ class FlowEstimatorReduce(nn.Module):
         feat = torch.cat([x4, x5], 1)
         flow_direct = to_nhwc(self._head(feat))
 
-        # Mask-average-pooled features -> constant flow per mask channel (f32 sums).
-        b, c, h, w = feat.shape
-        mflat = mask.reshape(b, h * w, self.mask_layer).float()
-        pooled = torch.einsum("bcp,bpm->bmc", feat.reshape(b, c, h * w).float(), mflat)
-        pooled = pooled / mflat.sum(dim=1)[..., None]
+        # Mask-average-pooled features -> constant flow per mask channel.
+        b, _, h, w = feat.shape
+        pooled = mask_pool(feat, mask)
         # The same 1x1 head on the pooled vectors: [B, M, 2].
         const = self._head(pooled.to(feat.dtype).permute(0, 2, 1)[..., None])[..., 0].permute(0, 2, 1)
         flow_group = [const[:, m, None, None, :].expand(b, h, w, 2)

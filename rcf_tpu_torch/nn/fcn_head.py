@@ -4,7 +4,8 @@
 ConvModules (BN+ReLU), channel dropout (Dropout2d) and a 1x1 ``conv_seg``
 classifier initialized N(0, 0.01). The ``resize_concat`` input
 transform, the ``concat_input`` fusion conv and the fused resize-conv of
-the RCF heads are not ported yet.
+the RCF heads are not ported yet: ``concat_input`` defaults to True as in
+JAX, so a head built without the key raises with the rest.
 
 State-dict keys follow the reference FCNHead (``convs.{i}.conv``,
 ``convs.{i}.bn``, ``conv_seg``). ``forward`` takes the NHWC
@@ -23,7 +24,7 @@ from .layers import Conv2d, ConvModule, to_nchw, to_nhwc
 class FCNHead(nn.Module):
     def __init__(self, num_classes: int, in_channels: int, channels: int = 256,
                  num_convs: int = 2, dilation: int = 1, dropout_ratio: float = 0.1,
-                 in_index: int = -1, concat_input: bool = False,
+                 in_index: int = -1, concat_input: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if concat_input or not isinstance(in_index, int):

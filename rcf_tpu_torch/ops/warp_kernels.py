@@ -21,6 +21,10 @@ function in tensor code. A wrapper takes the plain version only for a
 tensor on the CPU; on a CUDA tensor it launches the kernel or raises.
 Each wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel.
 
+``warp_fwd`` and ``warp_bwd`` offset inside one [H, W, C] plane in 32 bits
+and put the batch in the launch grid's z: both raise, on every device, for
+a plane of more than 2^31 - 1 elements or a shape the grid cannot hold.
+
 Build: ``nvcc`` compiles ``csrc/warp.cu`` for ``sm_90a`` into a shared
 library with a plain C interface, under ``rcf_tpu_torch/build/``, named by
 a hash of the sources and flags, at the first launch (or ``build()``).
@@ -32,6 +36,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -66,26 +71,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (looked on PATH, $CUDA_HOME and /usr/local/cuda)")
 
 
-def library_path() -> str:
+def library_path(csrc_dir: str = CSRC_DIR) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
-        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+        with open(os.path.join(csrc_dir, name), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"librcf_warp_{h.hexdigest()[:16]}.so")
 
 
-def build() -> str:
+def build(csrc_dir: str = CSRC_DIR) -> str:
     """Compile the kernels if this source hash has not been built; returns the .so path.
 
-    The compiler's report (``-Xptxas -v``: registers, spills) is kept beside
-    the library as ``<name>.log``.
+    ``csrc_dir`` may name another copy of the sources (it enters the hash
+    through their text). The compiler's report (``-Xptxas -v``: registers,
+    spills) is kept beside the library as ``<name>.log``.
     """
-    so = library_path()
+    so = library_path(csrc_dir)
     if os.path.isfile(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(os.path.join(csrc_dir, s) for s in SOURCES)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     with open(so[:-3] + ".log", "w") as f:
         f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
@@ -95,36 +101,67 @@ def build() -> str:
     return so
 
 
+def ptxas_report(so: str) -> list[dict]:
+    """Registers and spill bytes of each kernel instance, from ``build()``'s log."""
+    rows, cur = [], None
+    with open(so[:-3] + ".log") as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = m.group(1)
+                kernel = re.search(r"(warp_fwd|warp_bwd_dimg|warp_bwd|splat)_kernel", name)
+                c = re.search(r"Li(\d+)E", name)
+                cur = {"kernel": kernel.group(1) if kernel else name,
+                       "dtype": "bf16" if "bfloat16" in name else "f32",
+                       "c": int(c.group(1)) if c else None}
+                rows.append(cur)
+            elif cur is not None and (m := re.search(r"(\d+) bytes spill stores, "
+                                                      r"(\d+) bytes spill loads", line)):
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
+                cur["registers"] = int(m.group(1))
+    return rows
+
+
+def load_library(path: str) -> ctypes.CDLL:
+    """Load a built library and declare its C entry points."""
+    lib = ctypes.CDLL(path)
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    for name in ("rcf_warp_fwd_f32", "rcf_warp_fwd_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, i64, i32, i32, i32, p]
+        fn.restype = i32
+    for name in ("rcf_warp_bwd_f32", "rcf_warp_bwd_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, p, p, i64, i32, i32, i32, p]
+        fn.restype = i32
+    for name in ("rcf_warp_bwd_dimg_f32", "rcf_warp_bwd_dimg_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, p, p, p, i64, i32, i32, i32, p]
+        fn.restype = i32
+    lib.rcf_splat.argtypes = [p, p, p, i64, i64, i32, i32, p]
+    lib.rcf_splat.restype = i32
+    return lib
+
+
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        for name in ("rcf_warp_fwd_f32", "rcf_warp_fwd_bf16"):
-            fn = getattr(lib, name)
-            fn.argtypes = [p, p, p, p, i64, i32, i32, i32, p]
-            fn.restype = i32
-        for name in ("rcf_warp_bwd_f32", "rcf_warp_bwd_bf16"):
-            fn = getattr(lib, name)
-            fn.argtypes = [p, p, p, p, p, p, i64, i32, i32, i32, p]
-            fn.restype = i32
-        for name in ("rcf_warp_bwd_dimg_f32", "rcf_warp_bwd_dimg_bf16"):
-            fn = getattr(lib, name)
-            fn.argtypes = [p, p, p, p, p, p, p, i64, i32, i32, i32, p]
-            fn.restype = i32
-        lib.rcf_splat.argtypes = [p, p, p, i64, i64, i32, i32, p]
-        lib.rcf_splat.restype = i32
-        _lib = lib
+        _lib = load_library(build())
     return _lib
 
 
-def _check_launch(err: int, name: str) -> None:
+def _launch(name: str, fn, dev: torch.device, *args) -> None:
+    """Call the C entry point ``fn`` on ``dev``'s current stream, with ``dev``
+    the current device, and count the launch. The device guard and the raw
+    stream handle cost the host about a tenth of ``torch.cuda.device`` and
+    ``torch.cuda.current_stream`` (PERF.md): a wrapper's host time per call
+    then stays under the warps' device time at the step's level 0."""
+    with torch.cuda._DeviceGuard(dev.index):
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    LAUNCHES[name] += 1
 
 
 def _check_device(name: str, *ts: torch.Tensor) -> str:
@@ -143,6 +180,25 @@ def _check_warp(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor) -> None:
         raise ValueError(f"cx/cy must be {tuple(img.shape[:3])}, got {tuple(cx.shape)}, {tuple(cy.shape)}")
     if cx.dtype != torch.float32 or cy.dtype != torch.float32:
         raise ValueError("cx/cy must be float32")
+
+
+# warp_fwd and warp_bwd index inside one [H, W, C] plane with 32-bit offsets,
+# and launch one block per tile of TILE_ROWS rows, with the batch in the grid's
+# z: the grid's y and z stop at GRID_YZ_LIMIT.
+PLANE_LIMIT = 2**31 - 1
+GRID_YZ_LIMIT = 65535
+TILE_ROWS = 8  # warp.cu's kTY
+
+
+def _check_grid(name: str, img: torch.Tensor) -> None:
+    b, h, w, c = img.shape
+    if h * w * c > PLANE_LIMIT:
+        raise ValueError(f"{name}: an image plane of H*W*C = {h * w * c} elements does not fit "
+                         f"the kernel's 32-bit offsets (at most {PLANE_LIMIT})")
+    if b > GRID_YZ_LIMIT or -(-h // TILE_ROWS) > GRID_YZ_LIMIT:
+        raise ValueError(f"{name}: B = {b} planes of H = {h} rows exceed the kernel's launch "
+                         f"grid (at most {GRID_YZ_LIMIT} planes and "
+                         f"{GRID_YZ_LIMIT * TILE_ROWS} rows)")
 
 
 # ---------------------------------------------------------------- plain versions
@@ -229,6 +285,7 @@ def splat_plain(tx: torch.Tensor, ty: torch.Tensor, h: int, w: int) -> torch.Ten
 def warp_fwd(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor) -> torch.Tensor:
     """Bilinear sample of img [B,H,W,C] at absolute cx, cy [B,H,W] -> [B,H,W,C]."""
     _check_warp(img, cx, cy)
+    _check_grid("warp_fwd", img)
     if _check_device("warp_fwd", img, cx, cy) == "cpu":
         return warp_fwd_plain(img, cx, cy)
     img, cx, cy = img.contiguous(), cx.contiguous(), cy.contiguous()
@@ -236,11 +293,8 @@ def warp_fwd(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor) -> torch.Ten
     b, h, w, c = img.shape
     lib = _load()
     fn = lib.rcf_warp_fwd_f32 if img.dtype == torch.float32 else lib.rcf_warp_fwd_bf16
-    with torch.cuda.device(img.device):
-        err = fn(img.data_ptr(), cx.data_ptr(), cy.data_ptr(), out.data_ptr(),
-                 b * h * w, h, w, c, _stream(img))
-    _check_launch(err, "warp_fwd")
-    LAUNCHES["warp_fwd"] += 1
+    _launch("warp_fwd", fn, img.device, img.data_ptr(), cx.data_ptr(), cy.data_ptr(),
+            out.data_ptr(), b * h * w, h, w, c)
     return out
 
 
@@ -248,6 +302,7 @@ def warp_bwd(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
              g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """d(sum g * warp_fwd(img, cx, cy)) / d(cx, cy), each [B,H,W] f32."""
     _check_warp(img, cx, cy)
+    _check_grid("warp_bwd", img)
     if g.shape != img.shape:
         raise ValueError(f"g must be {tuple(img.shape)}, got {tuple(g.shape)}")
     g = g.to(img.dtype)
@@ -259,11 +314,8 @@ def warp_bwd(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
     b, h, w, c = img.shape
     lib = _load()
     fn = lib.rcf_warp_bwd_f32 if img.dtype == torch.float32 else lib.rcf_warp_bwd_bf16
-    with torch.cuda.device(img.device):
-        err = fn(img.data_ptr(), cx.data_ptr(), cy.data_ptr(), g.data_ptr(), dcx.data_ptr(),
-                 dcy.data_ptr(), b * h * w, h, w, c, _stream(img))
-    _check_launch(err, "warp_bwd")
-    LAUNCHES["warp_bwd"] += 1
+    _launch("warp_bwd", fn, img.device, img.data_ptr(), cx.data_ptr(), cy.data_ptr(),
+            g.data_ptr(), dcx.data_ptr(), dcy.data_ptr(), b * h * w, h, w, c)
     return dcx, dcy
 
 
@@ -284,11 +336,8 @@ def warp_bwd_dimg(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
     b, h, w, c = img.shape
     lib = _load()
     fn = lib.rcf_warp_bwd_dimg_f32 if img.dtype == torch.float32 else lib.rcf_warp_bwd_dimg_bf16
-    with torch.cuda.device(img.device):
-        err = fn(img.data_ptr(), cx.data_ptr(), cy.data_ptr(), g.data_ptr(), dimg.data_ptr(),
-                 dcx.data_ptr(), dcy.data_ptr(), b * h * w, h, w, c, _stream(img))
-    _check_launch(err, "warp_bwd_dimg")
-    LAUNCHES["warp_bwd_dimg"] += 1
+    _launch("warp_bwd_dimg", fn, img.device, img.data_ptr(), cx.data_ptr(), cy.data_ptr(),
+            g.data_ptr(), dimg.data_ptr(), dcx.data_ptr(), dcy.data_ptr(), b * h * w, h, w, c)
     return dimg.to(img.dtype), dcx, dcy
 
 
@@ -303,11 +352,8 @@ def splat(tx: torch.Tensor, ty: torch.Tensor, h: int, w: int) -> torch.Tensor:
     tx, ty = tx.contiguous(), ty.contiguous()
     b, sh, sw = tx.shape
     out = torch.zeros(b, h, w, dtype=torch.float32, device=tx.device)
-    with torch.cuda.device(tx.device):
-        err = _load().rcf_splat(tx.data_ptr(), ty.data_ptr(), out.data_ptr(),
-                                b * sh * sw, sh * sw, h, w, _stream(tx))
-    _check_launch(err, "splat")
-    LAUNCHES["splat"] += 1
+    _launch("splat", _load().rcf_splat, tx.device, tx.data_ptr(), ty.data_ptr(), out.data_ptr(),
+            b * sh * sw, sh * sw, h, w)
     return out
 
 

@@ -15,9 +15,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from flax import linen as fnn
 
 from rcf_tpu.losses import unflow as junflow
 from rcf_tpu.models.amd import build_amd_model as jax_build_amd_model
+from rcf_tpu.models.amd.pwc_lite import FlowEstimatorReduce as JaxFlowEstimatorReduce
 from rcf_tpu.models.amd.pwc_lite import PWCLite as JaxPWCLite
 from rcf_tpu.nn import FCNHead as JaxFCNHead
 from rcf_tpu.nn import ResNet as JaxResNet
@@ -26,7 +28,7 @@ from rcf_tpu.ops import resize_nearest as jax_resize_nearest
 from rcf_tpu_torch import convert
 from rcf_tpu_torch.losses import unflow as tunflow
 from rcf_tpu_torch.models.amd import build_amd_model
-from rcf_tpu_torch.models.amd.pwc_lite import PWCLite
+from rcf_tpu_torch.models.amd.pwc_lite import PWCLite, mask_pool
 from rcf_tpu_torch.nn import FCNHead, ResNet
 from rcf_tpu_torch.ops import resize_bilinear, resize_nearest
 from torch_parity import assert_close, init_variables, to_torch
@@ -108,6 +110,48 @@ def test_fcn_head_matches_jax():
         with torch.no_grad():
             ours = thead(tfeats)
         assert_close(ours.numpy(), _np(ref), REL_TRAIN if train else REL)
+
+
+def test_fcn_head_default_concat_input_raises():
+    """JAX's FCNHead defaults to concat_input=True (a conv_cat fusion), which the
+    port does not build: a head made without the key raises, as one made with
+    concat_input=True does, instead of silently differing from JAX's."""
+    assert JaxFCNHead(num_classes=5).concat_input
+    with pytest.raises(NotImplementedError):
+        FCNHead(num_classes=5, in_channels=24, in_index=3)
+    FCNHead(num_classes=5, in_channels=24, in_index=3, concat_input=False)
+
+
+def test_mask_pool_bf16_matches_jax():
+    """PWC-Lite's mask-average pooling in bf16 against JAX's own pooled vectors.
+
+    JAX's bf16 FlowEstimatorReduce runs on numpy weights and inputs; its
+    features (the first input of ``predict_flow1``) and pooled vectors (the
+    second, cast to bf16) are caught with an interceptor, and the port pools
+    the same features under the same mask. JAX casts the mask to bf16 for the
+    f32-accumulated product: the port must too. Sound, the bf16 pooled vectors
+    are equal (0 over seeds 0-5); an f32 mask in the product moves 8-11% of
+    them by one bf16 ulp, 3.7e-3 to 4.0e-3 of the largest.
+    """
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 12, 16, 115)).astype(np.float32)
+    logits = rng.standard_normal((2, 12, 16, 5)).astype(np.float32)
+    mask = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    jest = JaxFlowEstimatorReduce(mask_layer=5, dtype=jnp.bfloat16)
+    v = init_variables(jest, jnp.asarray(x), jnp.asarray(mask))
+    caught = []
+
+    def catch(next_fun, args, kwargs, context):
+        if context.module.name == "predict_flow1" and context.method_name == "__call__":
+            caught.append(np.asarray(args[0].astype(jnp.float32)))
+        return next_fun(*args, **kwargs)
+
+    with fnn.intercept_methods(catch):
+        jest.apply(v, jnp.asarray(x), jnp.asarray(mask))
+    feat, pooled = caught
+    ours = mask_pool(to_torch(feat).bfloat16().permute(0, 3, 1, 2), to_torch(mask))
+    assert ours.dtype == torch.float32
+    assert_close(ours.bfloat16().float().numpy(), pooled[:, :, 0, :], 1e-3)
 
 
 def _pwc_inputs(seed=0, b=2, hw=(64, 96), mhw=(8, 12)):

@@ -272,18 +272,51 @@ def test_wrappers_reject_unsupported_inputs():
         wk.warp_fwd(img.to("meta"), cx.to("meta"), cx.to("meta"))
 
 
+def test_warp_wrappers_reject_planes_past_32_bits():
+    """warp_fwd and warp_bwd offset inside a plane in 32 bits and put the batch
+    in the launch grid's z: a plane of more than 2^31 - 1 elements, more than
+    65535 planes, or more rows than 65535 tiles of 8 raise, on every device.
+    The tensors are stride-0 expansions, so nothing of that size is allocated."""
+    h, w = 2**15, 2**14
+    img = torch.zeros(1, 1, 1, 1).expand(1, h, w, 4)
+    cx = torch.zeros(1, 1, 1).expand(1, h, w)
+    with pytest.raises(ValueError, match="32-bit"):
+        wk.warp_fwd(img, cx, cx)
+    with pytest.raises(ValueError, match="32-bit"):
+        wk.warp_bwd(img, cx, cx, img)
+    wk._check_grid("warp_fwd", torch.zeros(1, 1, 1, 1).expand(1, h, w, 3))  # 1.6e9 fits
+    for b, h in ((65536, 1), (1, 65535 * 8 + 1)):
+        img = torch.zeros(1, 1, 1, 1).expand(b, h, 1, 1)
+        cx = torch.zeros(1, 1, 1).expand(b, h, 1)
+        with pytest.raises(ValueError, match="launch grid"):
+            wk.warp_fwd(img, cx, cx)
+        with pytest.raises(ValueError, match="launch grid"):
+            wk.warp_bwd(img, cx, cx, img)
+    wk._check_grid("warp_fwd", torch.zeros(1, 1, 1, 1).expand(65535, 65535 * 8, 1, 1))
+
+
+# The kernels-phase shapes of chip_smoke.py: widths that are no multiple of 32
+# (ragged tails, misaligned rows), every compiled channel count and the generic
+# instance (C=5), three planes; and the tests' level shape.
+_CARD_SHAPES = [(3, h, w, c) for h in (1, 13) for w in (1, 3, 77) for c in (1, 2, 3, 4, 5)]
+_CARD_SHAPES.append((B, H, W, C))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
 def test_warp_kernels_match_plain_on_card(cuda, dtype, tol):
-    img = torch.from_numpy(_img((B, H, W, C))).to(cuda, dtype)
-    cx, cy = (torch.from_numpy(a).to(cuda) for a in _coords(_flow((B, H, W, 2), 9.0)))
-    out = wk.warp_fwd(img, cx, cy)
-    torch.cuda.synchronize()
-    assert (out.float() - wk.warp_fwd_plain(img, cx, cy).float()).abs().max() <= tol
-    g = torch.from_numpy(_img((B, H, W, C), seed=9) - 0.5).to(cuda, dtype)
-    for k, p in zip(wk.warp_bwd(img, cx, cy, g), wk.warp_bwd_plain(img, cx, cy, g)):
-        torch.cuda.synchronize()
-        assert (k - p).abs().max() <= 1e-4
+    for shape in _CARD_SHAPES:
+        img = torch.from_numpy(_img(shape)).to(cuda, dtype)
+        cx, cy = (torch.from_numpy(a).to(cuda) for a in _coords(_flow((*shape[:3], 2), 9.0)))
+        g = torch.from_numpy(_img(shape, seed=9) - 0.5).to(cuda, dtype)
+        h, w = shape[1:3]
+        for x, y in ((cx, cy), (cx.clamp(0, w - 1), cy.clamp(0, h - 1))):  # zeros, border
+            out = wk.warp_fwd(img, x, y)
+            torch.cuda.synchronize()
+            assert (out.float() - wk.warp_fwd_plain(img, x, y).float()).abs().max() <= tol, shape
+            for k, p in zip(wk.warp_bwd(img, x, y, g), wk.warp_bwd_plain(img, x, y, g)):
+                torch.cuda.synchronize()
+                assert (k - p).abs().max() <= 1e-4, shape
 
 
 @pytest.mark.cuda

@@ -25,17 +25,60 @@ the CPU side stays plain):
   grid, in bf16 (the grid cast that the port had before it kept f32).
 
 Prints each case's readings beside chip_smoke's limits and which of them
-catch it, then one JSON line. Needs a CUDA device; imports no JAX.
+catch it. Then one fault in the CUDA source itself, built from a copy of
+``csrc/`` in a temporary directory (the repository's files stay as they
+are): ``tail_dropped``, warp_fwd and warp_bwd leave out the pixels of a row
+past its last multiple of 4 (the last pixel of a 77-wide row), which the
+level-0 shape (640 wide) never shows; it prints chip_smoke's level-0 and
+ragged-shape kernel comparisons for it. Last, one JSON line. Needs a CUDA
+device; imports no JAX.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+# The thread-placement test of warp_fwd/warp_bwd, and the fault planted in it.
+TAIL_FAULT = ("return x < w && y < h;", "return x < (w & ~3) && y < h;")
+
+
+def tail_fault(torch, cs, wk) -> dict:
+    """chip_smoke's level-0 and ragged warp comparisons with the tail fault built in."""
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in wk.SOURCES:
+            shutil.copy(os.path.join(wk.CSRC_DIR, name), tmp)
+        path = os.path.join(tmp, "warp.cu")
+        with open(path) as f:
+            src = f.read()
+        if src.count(TAIL_FAULT[0]) != 1:
+            raise RuntimeError("the tail fault's site is not in warp.cu")
+        with open(path, "w") as f:
+            f.write(src.replace(*TAIL_FAULT))
+        faulty = wk.load_library(wk.build(csrc_dir=tmp))
+    sound, wk._lib = wk._load(), faulty
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        img, cx, cy = cs.level0_inputs(torch, torch.float32, gen)
+        g = torch.randn_like(img)
+        level0 = {"warp_fwd": cs.max_err(wk.warp_fwd(img, cx, cy), wk.warp_fwd_plain(img, cx, cy)),
+                  "warp_bwd": max(cs.max_err(a, b) for a, b in zip(
+                      wk.warp_bwd(img, cx, cy, g), wk.warp_bwd_plain(img, cx, cy, g)))}
+        try:
+            cs.check_warp_ragged(torch, wk, gen)
+            ragged = None
+        except RuntimeError as e:
+            ragged = str(e)
+    finally:
+        wk._lib = sound
+    return {"level0_max_abs_err": level0, "ragged_caught": ragged}
 
 
 def main() -> int:
@@ -135,7 +178,11 @@ def main() -> int:
         out[case] = {**errs, **img_errs, "caught_by": caught}
         print(f"{case:17s} " + "  ".join(f"{k} {v:.3e}" for k, v in {**errs, **img_errs}.items())
               + f"  caught by {caught or 'nothing'}", flush=True)
-    print(json.dumps({"device": smi, "cases": out}))
+    tail = tail_fault(torch, cs, wk)
+    print(f"tail_dropped      level-0 max_abs_err {tail['level0_max_abs_err']} (tol "
+          f"{cs.TOL[('warp_fwd', 'float32')]}, {cs.TOL[('warp_bwd', 'float32')]}); ragged check: "
+          + (tail["ragged_caught"] or "not caught"), flush=True)
+    print(json.dumps({"device": smi, "cases": out, "tail_dropped": tail}))
     return 0
 
 
