@@ -6,14 +6,24 @@
 Phases, each timed:
 
 1. build      - compile ``rcf_tpu_torch/csrc/*.cu`` with nvcc (sm_90a) into
-                ``rcf_tpu_torch/build/``;
+                ``rcf_tpu_torch/build/``, and, beside it (one nvcc each, side
+                by side), a test build that counts the taps of each branch of
+                the overlap-adds (``warp_kernels.COUNT_TAPS``);
 2. kernels    - each kernel against its plain PyTorch version on the card, at
                 the AMD level-0 shapes (B=8, 384x640), images in f32 and bf16;
                 warp_fwd and warp_bwd also at ragged shapes (B=3, H in {1,
                 13}, W in {1, 3, 77}, C in 1..5, pad "border" and "zeros",
                 f32 and bf16) at the same tolerances: threads past the edge, each
                 compiled channel count, the generic instance, the batch
-                boundary;
+                boundary; splat and warp_bwd_dimg also on every set of
+                ``check_overlap_add`` (the level-0 i.i.d. and smooth flows,
+                gentle smooth flows whose taps all stay in their block's
+                shared-memory window, far flows that leave it and the image,
+                and the ragged shapes, with densities of other shapes than
+                the source), at the same tolerances, with the taps of each
+                branch (window, device memory) counted by the test build on
+                the same inputs: the far set must reach the device-memory
+                branch, the gentle smooth set only the window;
 3. step       - three AMD training steps (ResNet-50 OS8 + FCN mask head +
                 PWC-Lite + unFlow loss, Adam) at batch 8 pairs of 384^2
                 frames, flow_size 384x640, random weights from a seed, in f32
@@ -42,16 +52,17 @@ Phases, each timed:
                 ``library_ms_device``: device time alone, on inputs the L2
                 does not hold (the calls replayed from a CUDA graph, round
                 robin over input sets of more than twice the L2 in all). For
-                warp_fwd and warp_bwd also ``ms_smooth``,
-                ``library_ms_smooth``: device time, as ``ms_device``, on
-                smooth flows (per map N(0, 8^2) drawn at (H/4, W/4) and
-                bilinearly upsampled x4, as the step's flows are predicted at
-                a quarter of the resolution); and a ``warp_timing`` line with
-                both kernels and their library calls, device time, at the
-                step's four level shapes (384x640, 192x320, 96x160, 48x80;
-                B=8, C=3) on both flow kinds in f32, and at level 0 in bf16
-                (the library on bf16 NCHW with a bf16 grid), each with its
-                bound.
+                every kernel also ``ms_smooth``, ``library_ms_smooth``:
+                device time, as ``ms_device``, on smooth flows (per map
+                N(0, 8^2) drawn at (H/4, W/4) and bilinearly upsampled x4, as
+                the step's flows are predicted at a quarter of the
+                resolution); and a ``warp_timing`` line with warp_fwd and
+                warp_bwd and their library calls, device time, at the step's
+                four level shapes (384x640, 192x320, 96x160, 48x80; B=8, C=3)
+                on both flow kinds in f32, and at level 0 in bf16 (the library
+                on bf16 NCHW with a bf16 grid), and warp_bwd_dimg at level 0
+                in bf16 (C=2) on both flow kinds, each with its bound (the
+                splat's and warp_bwd_dimg's without their buffer's zero fill).
 
 Prints a ``{"kernels": [...]}`` line, the f32 and bf16 step times and the
 phase seconds, the card's name and power limit, and as the last line
@@ -63,6 +74,7 @@ with an error at once.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import math
 import subprocess
@@ -164,19 +176,21 @@ TRAIN_CFG = {"optimizer": "adam", "learning_rate": 1e-4, "weight_decay": 1e-6, "
 STEPS_PER_EPOCH = 100
 
 
-def level0_inputs(torch, dtype, gen, scale=5.0, b=B, h=H, w=W, c=C, smooth=False):
+def level0_inputs(torch, dtype, gen, scale=5.0, b=B, h=H, w=W, c=C, smooth=False,
+                  smooth_scale=8.0):
     """img [b,h,w,c] in [0,1), non-integer absolute coords cx, cy [b,h,w] f32.
 
-    The flow is i.i.d. N(0, scale^2) per pixel, or, with ``smooth``, N(0, 8^2)
-    drawn at (h/4, w/4) and bilinearly upsampled x4, as the step's flows are
-    predicted at a quarter of the resolution and upsampled.
+    The flow is i.i.d. N(0, scale^2) per pixel, or, with ``smooth``,
+    N(0, smooth_scale^2) drawn at (h/4, w/4) and bilinearly upsampled x4, as
+    the step's flows are predicted at a quarter of the resolution and upsampled.
     """
     import torch.nn.functional as F
 
     dev = "cuda"
     img = torch.rand(b, h, w, c, generator=gen, device=dev).to(dtype)
     if smooth:
-        fl = torch.randn(b, 2, max(h // 4, 1), max(w // 4, 1), generator=gen, device=dev) * 8.0
+        fl = torch.randn(b, 2, max(h // 4, 1), max(w // 4, 1), generator=gen,
+                         device=dev) * smooth_scale
         fl = F.interpolate(fl, size=(h, w), mode="bilinear", align_corners=True)
         fl = fl.permute(0, 2, 3, 1)
     else:
@@ -259,8 +273,10 @@ def bound(n_bytes: int, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_kernels(torch, wk) -> dict:
-    """Each kernel vs its plain version at the level-0 shapes; returns f32 max errors."""
+def phase_kernels(torch, wk, count_lib) -> dict:
+    """Each kernel vs its plain version at the level-0 shapes, then the
+    overlap-adds on every branch (``check_overlap_add``); returns the level-0
+    f32 max errors."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -295,6 +311,11 @@ def phase_kernels(torch, wk) -> dict:
     if not e_splat <= TOL[("splat", "float32")]:
         raise RuntimeError("splat kernel disagrees with its plain version")
     errs["splat"] = e_splat
+    failed = [f"{r['kernel']} {r['set']} {r['case']}: {r['err']:.3e} (tol {r['tol']})"
+              for r in check_overlap_add(torch, wk, gen, count_lib) if not r["err"] <= r["tol"]]
+    if failed:
+        raise RuntimeError("the overlap-add kernels disagree with their plain versions: "
+                           + "; ".join(failed[:10]))
     return errs
 
 
@@ -365,6 +386,116 @@ def check_warp_bwd_dimg(torch, wk, gen) -> float:
                 if dtype == torch.float32:
                     err_f32 = max(err_f32, *e)
     return err_f32
+
+
+def far_coords(torch, gen, b=B, h=H, w=W):
+    """Coordinates of i.i.d. N(0, 40^2) flows, one pixel in ten moved 10^6 px
+    left or right and another one in ten up or down: many taps land outside a
+    block's window (the device-memory branch) or outside the image."""
+    _, x, y = level0_inputs(torch, torch.float32, gen, scale=40.0, b=b, h=h, w=w, c=1)
+    for t in (x, y):
+        far = torch.rand(t.shape, generator=gen, device="cuda") < 0.1
+        sign = torch.randint(0, 2, t.shape, generator=gen, device="cuda") * 2.0 - 1.0
+        t.copy_(torch.where(far, t + 1e6 * sign, t))
+    return x, y
+
+
+def overlap_add_sets(torch, gen):
+    """The sets of ``check_overlap_add``: name -> (b, h, w, make() -> (cx, cy)).
+
+    ``iid``: the level-0 timing flows (i.i.d. N(0, 5^2)); ``smooth``: gentle
+    smooth flows (N(0, 2^2) at a quarter of the resolution, upsampled), whose
+    taps all fall in their block's window; ``smooth8``: the timing's smooth
+    flows (N(0, 8^2)); ``far``: ``far_coords``; ``ragged``: B=3, H in {1, 13},
+    W in {1, 3, 77}, i.i.d. N(0, 2^2) (tiles past the edge, rows that are no
+    multiple of 4 floats, so each row's head and tail quads)."""
+    def level0(**kw):
+        return lambda b=B, h=H, w=W: level0_inputs(torch, torch.float32, gen, b=b, h=h, w=w,
+                                                   c=1, **kw)[1:]
+
+    sets = {"iid": (B, H, W, level0()), "smooth": (B, H, W, level0(smooth=True, smooth_scale=2.0)),
+            "smooth8": (B, H, W, level0(smooth=True)),
+            "far": (B, H, W, lambda b=B, h=H, w=W: far_coords(torch, gen, b, h, w))}
+    for h in RAGGED_H:
+        for w in RAGGED_W:
+            sets[f"ragged {RAGGED_B}x{h}x{w}"] = (RAGGED_B, h, w, level0(scale=2.0))
+    return sets
+
+
+def check_overlap_add(torch, wk, gen, count_lib) -> list:
+    """splat and warp_bwd_dimg against their plain versions on every set of
+    ``overlap_add_sets``, at the level-0 tolerances: warp_bwd_dimg at C = 2, 3
+    (C = 1..5 on the ragged sets: every compiled channel count and the generic
+    instance), f32 and bf16, pad "zeros" and, where few taps pile up on the
+    image's edge (``iid``, ``smooth``, ragged), "border"; the splat over 2B maps
+    (B on the ragged sets) into the source shape and, on the ragged sets, into
+    (h + 5, 2w + 1) and (h/2, w/3) as well. The taps of each branch come from
+    ``count_lib``, the test build (``wk.COUNT_TAPS``), on the same inputs: the
+    ``far`` set must reach the device-memory branch of both kernels, the
+    ``smooth`` set the window alone. Returns one row per comparison."""
+    release = wk._lib
+    rows, branches = [], {}
+
+    def count(kernel, name, fn):
+        wk._lib = count_lib
+        try:
+            wk.tap_counts(count_lib)
+            fn()
+            torch.cuda.synchronize()
+            got = wk.tap_counts(count_lib)
+        finally:
+            wk._lib = release
+        old = branches.get((kernel, name), (0, 0))
+        branches[(kernel, name)] = (old[0] + got[0], old[1] + got[1])
+
+    for name, (b, h, w, make) in overlap_add_sets(torch, gen).items():
+        ragged = name.startswith("ragged")
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            for c in (RAGGED_C if ragged else (2, 3)):
+                cx, cy = make(b=b, h=h, w=w)
+                img = (torch.randn(b, h, w, c, generator=gen, device="cuda") * 5).to(dtype)
+                g = (torch.rand(b, h, w, c, generator=gen, device="cuda") * 2 - 1).to(dtype)
+                pads = [("zeros", (cx, cy))]
+                if name in ("iid", "smooth") or ragged:
+                    # Clamped far-out coordinates pile up on the edge: the "far" and
+                    # "smooth8" sums there pass 16, where one bf16 ulp is above TOL.
+                    pads.append(("border", (cx.clamp(0, w - 1), cy.clamp(0, h - 1))))
+                for pad, (x, y) in pads:
+                    ours = wk.warp_bwd_dimg(img, x, y, g)
+                    torch.cuda.synchronize()
+                    e = [max_err(a, p) for a, p in zip(ours, wk.warp_bwd_dimg_plain(img, x, y, g))]
+                    case = f"C={c} {dn} {pad}"
+                    rows.append({"kernel": "warp_bwd_dimg", "set": name, "case": case,
+                                 "err": e[0], "tol": TOL[("warp_bwd_dimg", dn)]})
+                    rows.append({"kernel": "warp_bwd_dimg dcx/dcy", "set": name, "case": case,
+                                 "err": max(e[1:]), "tol": TOL[("warp_bwd", "float32")]})
+                    count("warp_bwd_dimg", name, lambda: wk.warp_bwd_dimg(img, x, y, g))
+        maps = b if ragged else 2 * B
+        tx, ty = make(b=maps, h=h, w=w)
+        outs = ((h, w), (h + 5, 2 * w + 1), (max(h // 2, 1), max(w // 3, 1))) if ragged else ((h, w),)
+        for oh, ow in outs:
+            dens = wk.splat(tx, ty, oh, ow)
+            torch.cuda.synchronize()
+            rows.append({"kernel": "splat", "set": name, "case": f"out {oh}x{ow}",
+                         "err": max_err(dens, wk.splat_plain(tx, ty, oh, ow)),
+                         "tol": TOL[("splat", "float32")]})
+            count("splat", name, lambda: wk.splat(tx, ty, oh, ow))
+    worst = {}
+    for r in rows:
+        key = (r["kernel"], r["set"].split(" ")[0], r["case"].split(" ")[1]
+               if r["kernel"].startswith("warp") else "float32")
+        worst[key] = max(worst.get(key, 0.0), r["err"])
+    log("kernel overlap-add sets, max_abs_err: " + ", ".join(
+        f"{k} {s} {dn} {v:.3e}" for (k, s, dn), v in worst.items()))
+    log("kernel overlap-add taps (shared window / device memory), test build: " + ", ".join(
+        f"{k} {s} {n[0]}/{n[1]}" for (k, s), n in branches.items()))
+    for k in ("splat", "warp_bwd_dimg"):
+        if branches[(k, "far")][1] == 0:
+            raise RuntimeError(f"{k}: the far set reached no device-memory tap")
+        if branches[(k, "smooth")][1] != 0 or branches[(k, "smooth")][0] == 0:
+            raise RuntimeError(f"{k}: the smooth set left the shared window")
+    return rows
 
 
 def phase_step(torch, wk, dtype) -> tuple[dict, float]:
@@ -616,39 +747,59 @@ def time_warps(torch, wk, gen, dtype, h, w, smooth: bool) -> dict:
             for name in sets[0]}
 
 
+def time_cold(torch, make, smooth: bool) -> dict:
+    """A level0_specs entry's kernel and library call, device time on
+    ``cold_sets`` input sets: {"ms_device", "library_ms_device", "bound_ms"}."""
+    first = make(smooth)
+    sets = [first] + [make(smooth) for _ in range(cold_sets(first[3]) - 1)]
+    res = {"ms_device": graph_ms(torch, [s_[0] for s_ in sets]),
+           "library_ms_device": graph_ms(torch, [s_[2] for s_ in sets]),
+           "bound_ms": bound(*first[3:])[0]}
+    del sets
+    return res
+
+
 def phase_warp_timing(torch, wk) -> dict:
     """The device readings beyond the level-0 rows: warp_fwd and warp_bwd at
     the step's four level shapes on both flow kinds (f32), and at level 0 in
-    bf16. Returns the level-0 f32 smooth readings by name."""
+    bf16; warp_bwd_dimg at level 0 in bf16 on both flow kinds. Returns the
+    level-0 f32 smooth readings of the warps by name."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     sets = [("float32", hw, kind) for hw in LEVELS for kind in ("iid", "smooth")]
     sets += [("bfloat16", LEVELS[0], kind) for kind in ("iid", "smooth")]
     readings = []
     for dn, (h, w), kind in sets:
         res = time_warps(torch, wk, gen, getattr(torch, dn), h, w, kind == "smooth")
+        if dn == "bfloat16":
+            dimg = level0_specs(torch, wk, gen, torch.bfloat16)["warp_bwd_dimg"]
+            res["warp_bwd_dimg"] = time_cold(torch, dimg, kind == "smooth")
         for name, r in res.items():
             readings.append({"name": name, "dtype": dn, "h": h, "w": w, "flow": kind, **r})
             ms, lib = r["ms_device"], r["library_ms_device"]
-            log(f"timing {name} {dn} {B}x{h}x{w}x{C} {kind}: device {ms:.4f} ms, library "
-                f"{lib:.4f} ms ({lib / ms:.2f}x), bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_ms'] / ms:.0%} of it)")
+            log(f"timing {name} {dn} {B}x{h}x{w}x{2 if name == 'warp_bwd_dimg' else C} {kind}: "
+                f"device {ms:.4f} ms, library {lib:.4f} ms ({lib / ms:.2f}x), bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_ms'] / ms:.0%} of it)")
     print(json.dumps({"warp_timing": readings}), flush=True)
     return {r["name"]: r for r in readings
-            if r["dtype"] == "float32" and (r["h"], r["w"]) == LEVELS[0] and r["flow"] == "smooth"}
+            if r["dtype"] == "float32" and (r["h"], r["w"]) == LEVELS[0] and r["flow"] == "smooth"
+            and r["name"] != "warp_bwd_dimg"}
 
 
-def level0_specs(torch, wk, gen) -> dict:
-    """name -> make(): a fresh level-0 input set for the kernel, returning its
-    (kernel call, plain call, library call, bytes, operations). The library
-    yardsticks: warp_calls' for the warps; ``index_add_`` of the splat's
-    precomputed corner weights; for warp_bwd_dimg, where the system calls it
-    (a flow, C=2, pad="zeros", coordinates unclamped), the backward of
-    ``grid_sample`` with both the image and the grid gradient."""
+def level0_specs(torch, wk, gen, dtype=None) -> dict:
+    """name -> make(smooth=False): a fresh level-0 input set for the kernel, on
+    i.i.d. or smooth flows, returning its (kernel call, plain call, library
+    call, bytes, operations). The library yardsticks: warp_calls' for the
+    warps; ``index_add_`` of the splat's precomputed corner weights; for
+    warp_bwd_dimg, where the system calls it (a flow, C=2, pad="zeros",
+    coordinates unclamped), the backward of ``grid_sample`` with both the image
+    and the grid gradient (on a grid of the image's dtype). ``dtype``: the
+    warp_bwd_dimg image's, f32 by default."""
     n_px = B * H * W
+    dtype = dtype or torch.float32
 
     def warp(name):
-        def make():
-            img, cx, cy = level0_inputs(torch, torch.float32, gen)
+        def make(smooth=False):
+            img, cx, cy = level0_inputs(torch, torch.float32, gen, smooth=smooth)
             cx, cy = cx.clamp(0, W - 1), cy.clamp(0, H - 1)
             g = torch.randn(B, H, W, C, generator=gen, device="cuda")
             kern, lib, n_bytes, flops = warp_calls(torch, wk, img, cx, cy, g)[name]
@@ -657,8 +808,8 @@ def level0_specs(torch, wk, gen) -> dict:
             return kern, plain, lib, n_bytes, flops
         return make
 
-    def splat():
-        _, tx, ty = level0_inputs(torch, torch.float32, gen, b=2 * B)
+    def splat(smooth=False):
+        _, tx, ty = level0_inputs(torch, torch.float32, gen, b=2 * B, smooth=smooth)
         offs, valid, ax, ay = wk._taps(tx, ty, H, W)
         wts = ((1 - ay) * (1 - ax), (1 - ay) * ax, ay * (1 - ax), ay * ax)
         base = (torch.arange(2 * B, device="cuda") * H * W)[:, None, None]
@@ -670,13 +821,14 @@ def level0_specs(torch, wk, gen) -> dict:
                 lambda: dens.zero_().index_add_(0, idx, val),
                 nbytes(tx, ty) + 2 * B * H * W * 4, 2 * n_px * 20)
 
-    def dimg():
-        fl = torch.randn(B, H, W, 2, generator=gen, device="cuda") * 5.0
-        _, zx, zy = level0_inputs(torch, torch.float32, gen)
-        g2 = torch.randn(B, H, W, 2, generator=gen, device="cuda")
+    def dimg(smooth=False):
+        fl = (torch.randn(B, H, W, 2, generator=gen, device="cuda") * 5.0).to(dtype)
+        _, zx, zy = level0_inputs(torch, torch.float32, gen, smooth=smooth)
+        g2 = torch.randn(B, H, W, 2, generator=gen, device="cuda").to(dtype)
         fl_nchw = fl.permute(0, 3, 1, 2).contiguous()
         g2_nchw = g2.permute(0, 3, 1, 2).contiguous()
-        zgrid = torch.stack([zx * (2.0 / (W - 1)) - 1.0, zy * (2.0 / (H - 1)) - 1.0], dim=-1)
+        zgrid = torch.stack([zx * (2.0 / (W - 1)) - 1.0, zy * (2.0 / (H - 1)) - 1.0],
+                            dim=-1).to(dtype)
         return (lambda: wk.warp_bwd_dimg(fl, zx, zy, g2),
                 lambda: wk.warp_bwd_dimg_plain(fl, zx, zy, g2),
                 lambda: torch.ops.aten.grid_sampler_2d_backward(g2_nchw, fl_nchw, zgrid, 0, 0,
@@ -691,8 +843,9 @@ def phase_timing(torch, wk, counts: dict, errs: dict) -> list:
     """The ``kernels`` rows at the level-0 shape, i.i.d. flows. ``ms``,
     ``library_ms`` and ``plain_ms``: an eager loop of calls on one input set
     (``cuda_ms``), as earlier versions of this script read them. ``ms_device``, ``library_ms_device``:
-    device time on cold inputs (``graph_ms``). For the warps also
-    ``ms_smooth``, ``library_ms_smooth``: device time on smooth flows."""
+    device time on cold inputs (``graph_ms``). ``ms_smooth``,
+    ``library_ms_smooth``: device time on smooth flows (the warps' from
+    ``phase_warp_timing``)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
     for name, make in level0_specs(torch, wk, gen).items():
@@ -704,6 +857,7 @@ def phase_timing(torch, wk, counts: dict, errs: dict) -> list:
         ms_dev = graph_ms(torch, [k for k, _ in sets])
         lib_dev = graph_ms(torch, [l_ for _, l_ in sets])
         del sets
+        smooth = time_cold(torch, make, True) if name in ("splat", "warp_bwd_dimg") else None
         b_ms, b_by = bound(n_bytes, flops)
         rows.append({
             "name": name, "route": "cuda", "source": "rcf_tpu_torch/csrc/warp.cu",
@@ -712,13 +866,18 @@ def phase_timing(torch, wk, counts: dict, errs: dict) -> list:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             "ms_device": ms_dev, "library_ms_device": lib_dev,
         })
+        if smooth:
+            rows[-1].update(ms_smooth=smooth["ms_device"],
+                            library_ms_smooth=smooth["library_ms_device"])
         log(f"timing {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, plain "
             f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms); device, cold inputs "
-            f"{ms_dev:.4f} ms, library {lib_dev:.4f} ms")
-    smooth = phase_warp_timing(torch, wk)
+            f"{ms_dev:.4f} ms, library {lib_dev:.4f} ms"
+            + (f"; smooth flows {smooth['ms_device']:.4f} ms, library "
+               f"{smooth['library_ms_device']:.4f} ms" if smooth else ""))
+    warp_smooth = phase_warp_timing(torch, wk)
     for row in rows:
-        if row["name"] in smooth:
-            r = smooth[row["name"]]
+        if row["name"] in warp_smooth:
+            r = warp_smooth[row["name"]]
             row.update(ms_smooth=r["ms_device"], library_ms_smooth=r["library_ms_device"])
     return rows
 
@@ -741,15 +900,21 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    so = wk.build()
+    # The release library and the test build that counts the overlap-add's
+    # branches, one nvcc each, side by side.
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        count_so = pool.submit(wk.build_patched, wk.COUNT_TAPS, "count_taps")
+        so = wk.build()
+        count_lib = wk.load_library(count_so.result())
     phases["build"] = time.perf_counter() - t0
     log(f"build: {phases['build']:.1f} s -> {so}")
     for r in wk.ptxas_report(so):
         log(f"  ptxas: {r['kernel']} {r['dtype']} C={r['c']}: {r.get('registers')} registers, "
-            f"spill {r.get('spill_stores')}/{r.get('spill_loads')} bytes (stores/loads)")
+            f"spill {r.get('spill_stores')}/{r.get('spill_loads')} bytes (stores/loads), "
+            f"{r.get('smem')} bytes shared memory")
 
     t0 = time.perf_counter()
-    errs = phase_kernels(torch, wk)
+    errs = phase_kernels(torch, wk, count_lib)
     phases["kernels"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()

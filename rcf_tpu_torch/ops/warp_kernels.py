@@ -16,14 +16,19 @@ of ``rcf_tpu/ops/pallas/warp_pallas.py``:
 * ``splat``     <- ``_splat_kernel``: forward bilinear splat of ones at
   ``(tx, ty)`` into an f32 density, out-of-range corners dropped.
 
+The two overlap-adds accumulate each block's taps in a window of shared
+memory and add it to device memory once; a tap outside the window goes
+straight to device memory (``warp.cu``). A test build counts the taps of
+each branch (``build_patched(COUNT_TAPS)``, ``tap_counts``).
+
 Beside each kernel is its plain PyTorch version (``*_plain``), the same
 function in tensor code. A wrapper takes the plain version only for a
 tensor on the CPU; on a CUDA tensor it launches the kernel or raises.
 Each wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel.
 
-``warp_fwd`` and ``warp_bwd`` offset inside one [H, W, C] plane in 32 bits
-and put the batch in the launch grid's z: both raise, on every device, for
-a plane of more than 2^31 - 1 elements or a shape the grid cannot hold.
+Every kernel offsets inside one [H, W, C] plane in 32 bits and puts the
+batch in the launch grid's z: each wrapper raises, on every device, for a
+plane of more than 2^31 - 1 elements or a shape the grid cannot hold.
 
 Build: ``nvcc`` compiles ``csrc/warp.cu`` for ``sm_90a`` into a shared
 library with a plain C interface, under ``rcf_tpu_torch/build/``, named by
@@ -101,8 +106,33 @@ def build(csrc_dir: str = CSRC_DIR) -> str:
     return so
 
 
+# The test build's change to warp.cu: count the taps of each overlap-add branch.
+COUNT_TAPS = (("constexpr bool kCountTaps = false;", "constexpr bool kCountTaps = true;"),)
+
+
+def build_patched(replacements, tag: str) -> str:
+    """Build a changed copy of the sources: each (old, new) pair replaces text that
+    occurs exactly once. The copy lives in ``build/<tag>/``; returns the .so path."""
+    src_dir = os.path.join(BUILD_DIR, tag)
+    os.makedirs(src_dir, exist_ok=True)
+    texts = {}
+    for name in SOURCES:
+        with open(os.path.join(CSRC_DIR, name)) as f:
+            texts[name] = f.read()
+    for old, new in replacements:
+        sites = [n for n, t in texts.items() for _ in range(t.count(old))]
+        if len(sites) != 1:
+            raise ValueError(f"{old!r} does not occur exactly once in {SOURCES}")
+        texts[sites[0]] = texts[sites[0]].replace(old, new)
+    for name, text in texts.items():
+        with open(os.path.join(src_dir, name), "w") as f:
+            f.write(text)
+    return build(csrc_dir=src_dir)
+
+
 def ptxas_report(so: str) -> list[dict]:
-    """Registers and spill bytes of each kernel instance, from ``build()``'s log."""
+    """Registers, spill bytes and static shared memory of each kernel instance,
+    from ``build()``'s log."""
     rows, cur = [], None
     with open(so[:-3] + ".log") as f:
         for line in f:
@@ -110,9 +140,9 @@ def ptxas_report(so: str) -> list[dict]:
             if m:
                 name = m.group(1)
                 kernel = re.search(r"(warp_fwd|warp_bwd_dimg|warp_bwd|splat)_kernel", name)
+                kernel = kernel.group(1) if kernel else name
                 c = re.search(r"Li(\d+)E", name)
-                cur = {"kernel": kernel.group(1) if kernel else name,
-                       "dtype": "bf16" if "bfloat16" in name else "f32",
+                cur = {"kernel": kernel, "dtype": "bf16" if "bfloat16" in name else "f32",
                        "c": int(c.group(1)) if c else None}
                 rows.append(cur)
             elif cur is not None and (m := re.search(r"(\d+) bytes spill stores, "
@@ -120,6 +150,8 @@ def ptxas_report(so: str) -> list[dict]:
                 cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
             elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
                 cur["registers"] = int(m.group(1))
+                smem = re.search(r"(\d+) bytes smem", line)
+                cur["smem"] = int(smem.group(1)) if smem else 0
     return rows
 
 
@@ -139,8 +171,10 @@ def load_library(path: str) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, p, p, p, i64, i32, i32, i32, p]
         fn.restype = i32
-    lib.rcf_splat.argtypes = [p, p, p, i64, i64, i32, i32, p]
+    lib.rcf_splat.argtypes = [p, p, p, i64, i32, i32, i32, i32, p]
     lib.rcf_splat.restype = i32
+    lib.rcf_tap_counts.argtypes = [p, i32]
+    lib.rcf_tap_counts.restype = i32
     return lib
 
 
@@ -149,6 +183,17 @@ def _load() -> ctypes.CDLL:
     if _lib is None:
         _lib = load_library(build())
     return _lib
+
+
+def tap_counts(lib: ctypes.CDLL, reset: bool = True) -> tuple[int, int]:
+    """(taps added in the shared window, taps added straight to device memory)
+    since the last reset, from a library built with ``COUNT_TAPS``; a release
+    build reads (0, 0). Call after the launches have finished."""
+    out = (ctypes.c_ulonglong * 2)()
+    err = lib.rcf_tap_counts(ctypes.cast(out, ctypes.c_void_p), int(reset))
+    if err != 0:
+        raise RuntimeError(f"rcf_tap_counts failed: cudaError {err}")
+    return int(out[0]), int(out[1])
 
 
 def _launch(name: str, fn, dev: torch.device, *args) -> None:
@@ -182,23 +227,30 @@ def _check_warp(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor) -> None:
         raise ValueError("cx/cy must be float32")
 
 
-# warp_fwd and warp_bwd index inside one [H, W, C] plane with 32-bit offsets,
-# and launch one block per tile of TILE_ROWS rows, with the batch in the grid's
-# z: the grid's y and z stop at GRID_YZ_LIMIT.
+# The kernels index inside one plane with 32-bit offsets, and launch one block
+# per tile of TILE_ROWS rows, with the batch in the grid's z: the grid's y and z
+# stop at GRID_YZ_LIMIT.
 PLANE_LIMIT = 2**31 - 1
 GRID_YZ_LIMIT = 65535
 TILE_ROWS = 8  # warp.cu's kTY
+SPLAT_TILE_ROWS = 32  # kTY * kSplatShape.pixels
+
+
+def _check_launch(name: str, b: int, h: int, plane: int, tile_rows: int = TILE_ROWS) -> None:
+    """b planes of h rows in tiles of ``tile_rows``, the largest plane (in or out) of
+    ``plane`` elements."""
+    if plane > PLANE_LIMIT:
+        raise ValueError(f"{name}: a plane of {plane} elements does not fit the kernel's 32-bit "
+                         f"offsets (at most {PLANE_LIMIT})")
+    if b > GRID_YZ_LIMIT or -(-h // tile_rows) > GRID_YZ_LIMIT:
+        raise ValueError(f"{name}: B = {b} planes of H = {h} rows exceed the kernel's launch "
+                         f"grid (at most {GRID_YZ_LIMIT} planes and "
+                         f"{GRID_YZ_LIMIT * tile_rows} rows)")
 
 
 def _check_grid(name: str, img: torch.Tensor) -> None:
     b, h, w, c = img.shape
-    if h * w * c > PLANE_LIMIT:
-        raise ValueError(f"{name}: an image plane of H*W*C = {h * w * c} elements does not fit "
-                         f"the kernel's 32-bit offsets (at most {PLANE_LIMIT})")
-    if b > GRID_YZ_LIMIT or -(-h // TILE_ROWS) > GRID_YZ_LIMIT:
-        raise ValueError(f"{name}: B = {b} planes of H = {h} rows exceed the kernel's launch "
-                         f"grid (at most {GRID_YZ_LIMIT} planes and "
-                         f"{GRID_YZ_LIMIT * TILE_ROWS} rows)")
+    _check_launch(name, b, h, h * w * c)
 
 
 # ---------------------------------------------------------------- plain versions
@@ -323,6 +375,7 @@ def warp_bwd_dimg(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
                   g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """d(sum g * warp_fwd(img, cx, cy)) / d(img, cx, cy): dimg in img's dtype, dcx, dcy f32."""
     _check_warp(img, cx, cy)
+    _check_grid("warp_bwd_dimg", img)
     if g.shape != img.shape:
         raise ValueError(f"g must be {tuple(img.shape)}, got {tuple(g.shape)}")
     g = g.to(img.dtype)
@@ -347,13 +400,15 @@ def splat(tx: torch.Tensor, ty: torch.Tensor, h: int, w: int) -> torch.Tensor:
         raise ValueError(f"tx/ty must be one [B,H,W] shape, got {tuple(tx.shape)}, {tuple(ty.shape)}")
     if tx.dtype != torch.float32 or ty.dtype != torch.float32:
         raise ValueError("tx/ty must be float32")
+    b, sh, sw = tx.shape
+    _check_launch("splat", b, sh, max(sh * sw, h * w), SPLAT_TILE_ROWS)
     if _check_device("splat", tx, ty) == "cpu":
         return splat_plain(tx, ty, h, w)
     tx, ty = tx.contiguous(), ty.contiguous()
-    b, sh, sw = tx.shape
+    # The kernel overlap-adds into the density: it must start at zero.
     out = torch.zeros(b, h, w, dtype=torch.float32, device=tx.device)
     _launch("splat", _load().rcf_splat, tx.device, tx.data_ptr(), ty.data_ptr(), out.data_ptr(),
-            b * sh * sw, sh * sw, h, w)
+            b * sh * sw, sh, sw, h, w)
     return out
 
 

@@ -47,6 +47,19 @@ def _coords(flow):
     return xs[None] + flow[..., 0], ys[None] + flow[..., 1]
 
 
+def _far_coords(shape, seed=7):
+    """Coordinates of i.i.d. N(0, 40^2) flows, one pixel in ten moved 10^6 px left or
+    right and another one in ten up or down: taps far outside a kernel block's
+    window and outside the image."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for t in _coords(_flow((*shape, 2), 40.0, seed=seed)):
+        far = rng.random(t.shape) < 0.1
+        out.append(np.where(far, t + 1e6 * rng.choice([-1.0, 1.0], t.shape), t)
+                   .astype(np.float32))
+    return out
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -220,6 +233,17 @@ def test_splat_matches_pallas(scale):
     np.testing.assert_allclose(ours.numpy(), ref, atol=TOL_SPLAT)
 
 
+def test_splat_matches_pallas_far_flow():
+    """Far flows (N(0, 40^2), a tenth of the pixels 10^6 px out): the port's plain
+    splat against the Pallas kernel. At 96 x 384 the kernel's [96, 384] window
+    covers the frame, so it is exact for any flow (at larger frames its caller
+    sends flows that leave the window to the dense path)."""
+    tx, ty = _far_coords((B, 96, 384))
+    ref = np.asarray(splat_pallas(jnp.asarray(tx), jnp.asarray(ty), 96, 384, interpret=True))
+    ours = wk.splat(torch.from_numpy(tx), torch.from_numpy(ty), 96, 384)
+    np.testing.assert_allclose(ours.numpy(), ref, atol=TOL_SPLAT)
+
+
 @pytest.mark.parametrize("shape", [(2, 12, 14), (3, 33, 47)])
 def test_corresponding_map_matches_dense(shape):
     flow = _flow((*shape, 2), 4.0, seed=1)
@@ -295,6 +319,35 @@ def test_warp_wrappers_reject_planes_past_32_bits():
     wk._check_grid("warp_fwd", torch.zeros(1, 1, 1, 1).expand(65535, 65535 * 8, 1, 1))
 
 
+@pytest.mark.parametrize("kernel", ["splat", "warp_bwd_dimg"])
+def test_overlap_add_wrappers_reject_planes_past_32_bits(kernel):
+    """The splat and warp_bwd_dimg offset inside a plane in 32 bits and put the
+    batch in the launch grid's z, as warp_fwd and warp_bwd do: a plane (the
+    splat's source or density) of more than 2^31 - 1 elements, more than 65535
+    planes, or more rows than 65535 tiles (32 rows for the splat, 8 for
+    warp_bwd_dimg) raise, on every device. Stride-0 tensors: nothing of that
+    size is allocated."""
+    def call(b, h, w, c=2, out=None):
+        if kernel == "splat":
+            t = torch.zeros(1, 1, 1).expand(b, h, w)
+            return wk.splat(t, t, *(out or (1, 1)))
+        img = torch.zeros(1, 1, 1, 1).expand(b, h, w, c)
+        cx = torch.zeros(1, 1, 1).expand(b, h, w)
+        return wk.warp_bwd_dimg(img, cx, cx, img)
+
+    with pytest.raises(ValueError, match="32-bit"):
+        call(1, 2**15, 2**16 if kernel == "splat" else 2**14, c=4)
+    if kernel == "splat":
+        with pytest.raises(ValueError, match="32-bit"):
+            call(1, 1, 1, out=(2**16, 2**16))  # the density's plane
+    rows = 65535 * (wk.SPLAT_TILE_ROWS if kernel == "splat" else wk.TILE_ROWS)
+    for b, h in ((65536, 1), (1, rows + 1)):
+        with pytest.raises(ValueError, match="launch grid"):
+            call(b, h, 1)
+    wk._check_launch(kernel, 65535, rows, 2**31 - 1,
+                     wk.SPLAT_TILE_ROWS if kernel == "splat" else wk.TILE_ROWS)
+
+
 # The kernels-phase shapes of chip_smoke.py: widths that are no multiple of 32
 # (ragged tails, misaligned rows), every compiled channel count and the generic
 # instance (C=5), three planes; and the tests' level shape.
@@ -323,18 +376,29 @@ def test_warp_kernels_match_plain_on_card(cuda, dtype, tol):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c", [2, 3])
 def test_warp_bwd_dimg_kernel_matches_plain_on_card(cuda, dtype, c):
-    img = torch.from_numpy(_img((B, H, W, c))).to(cuda, dtype)
-    cx, cy = (torch.from_numpy(a).to(cuda) for a in _coords(_flow((B, H, W, 2), 9.0)))
-    g = torch.from_numpy(_img((B, H, W, c), seed=9) - 0.5).to(cuda, dtype)
-    ours = wk.warp_bwd_dimg(img, cx, cy, g)
-    torch.cuda.synchronize()
-    plain = wk.warp_bwd_dimg_plain(img, cx, cy, g)
-    # dimg: f32 atomics in a run-dependent order, then, for bf16 images, one
-    # rounding to bf16 on each side (|dimg| < 4: one bf16 ulp is at most 2^-6).
-    tol = 1e-5 if dtype == torch.float32 else 2e-2
-    assert (ours[0].float() - plain[0].float()).abs().max() <= tol
-    for k, p in zip(ours[1:], plain[1:]):
-        assert (k - p).abs().max() <= 1e-4
+    """The level shape with C = c (flows N(0, 9^2), pad "zeros"); the ragged
+    shapes (every C, flows N(0, 2^2), both pads: tiles past the edge, rows whose
+    window flush has a head and a tail); and far flows (``_far_coords``, pad
+    "zeros"): taps outside the block's window, which go straight to device memory."""
+    sets = [((B, H, W, c), _coords(_flow((B, H, W, 2), 9.0)), False)]
+    sets += [(s, _coords(_flow((*s[:3], 2), 2.0)), True) for s in _CARD_SHAPES[:-1]]
+    sets.append(((B, H, W, c), _far_coords((B, H, W)), False))
+    for shape, coords, both_pads in sets:
+        img = torch.from_numpy(_img(shape)).to(cuda, dtype)
+        cx, cy = (torch.from_numpy(a).to(cuda) for a in coords)
+        g = torch.from_numpy(_img(shape, seed=9) - 0.5).to(cuda, dtype)
+        h, w = shape[1:3]
+        pads = [(cx, cy)] + ([(cx.clamp(0, w - 1), cy.clamp(0, h - 1))] if both_pads else [])
+        for x, y in pads:
+            ours = wk.warp_bwd_dimg(img, x, y, g)
+            torch.cuda.synchronize()
+            plain = wk.warp_bwd_dimg_plain(img, x, y, g)
+            # dimg: f32 atomics in a run-dependent order, then, for bf16 images, one
+            # rounding to bf16 on each side (|dimg| < 4: one bf16 ulp is at most 2^-6).
+            tol = 1e-5 if dtype == torch.float32 else 2e-2
+            assert (ours[0].float() - plain[0].float()).abs().max() <= tol, shape
+            for k, p in zip(ours[1:], plain[1:]):
+                assert (k - p).abs().max() <= 1e-4, shape
 
 
 @pytest.mark.cuda
@@ -343,3 +407,20 @@ def test_splat_kernel_matches_plain_on_card(cuda):
     dens = wk.splat(tx, ty, H, W)
     torch.cuda.synchronize()
     assert (dens - wk.splat_plain(tx, ty, H, W)).abs().max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_splat_kernel_matches_plain_on_card_ragged_and_far(cuda):
+    """The ragged source shapes into their own shape, a larger and a smaller
+    density; and far flows (``_far_coords``) at the level shape, whose taps
+    leave the block's window and the image."""
+    sets = []
+    for b, h, w, _ in _CARD_SHAPES[:-1:5]:  # each (h, w) once
+        coords = _coords(_flow((b, h, w, 2), 2.0))
+        sets += [(coords, out) for out in ((h, w), (h + 5, 2 * w + 1), (max(h // 2, 1), max(w // 3, 1)))]
+    sets.append((_far_coords((B, H, W)), (H, W)))
+    for coords, (h, w) in sets:
+        tx, ty = (torch.from_numpy(a).to(cuda) for a in coords)
+        dens = wk.splat(tx, ty, h, w)
+        torch.cuda.synchronize()
+        assert (dens - wk.splat_plain(tx, ty, h, w)).abs().max() <= 1e-4, (tx.shape, h, w)

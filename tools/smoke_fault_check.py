@@ -25,44 +25,49 @@ the CPU side stays plain):
   grid, in bf16 (the grid cast that the port had before it kept f32).
 
 Prints each case's readings beside chip_smoke's limits and which of them
-catch it. Then one fault in the CUDA source itself, built from a copy of
-``csrc/`` in a temporary directory (the repository's files stay as they
-are): ``tail_dropped``, warp_fwd and warp_bwd leave out the pixels of a row
-past its last multiple of 4 (the last pixel of a 77-wide row), which the
-level-0 shape (640 wide) never shows; it prints chip_smoke's level-0 and
-ragged-shape kernel comparisons for it. Last, one JSON line. Needs a CUDA
-device; imports no JAX.
+catch it. Then faults in the CUDA source itself, each built from a changed
+copy of ``csrc/`` under the gitignored ``rcf_tpu_torch/build/`` (the
+repository's sources stay as they are):
+
+* ``tail_dropped``: warp_fwd and warp_bwd leave out the pixels of a row past
+  its last multiple of 4 (the last pixel of a 77-wide row), which the
+  level-0 shape (640 wide) never shows; it prints chip_smoke's level-0 and
+  ragged-shape kernel comparisons for it;
+* ``direct_dropped``: the overlap-adds (splat, warp_bwd_dimg) drop every tap
+  outside the block's shared-memory window instead of adding it to device
+  memory;
+* ``flush_tail_dropped``: the overlap-adds' flush leaves out the scalar quad
+  at the tail of each window row;
+
+for these two it prints the worst error of each of chip_smoke's
+overlap-add comparisons (level 0, and ``check_overlap_add``'s sets) and
+which catch it. Last, one JSON line. Needs a CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import shutil
 import subprocess
 import sys
-import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 # The thread-placement test of warp_fwd/warp_bwd, and the fault planted in it.
 TAIL_FAULT = ("return x < w && y < h;", "return x < (w & ~3) && y < h;")
+# The overlap-adds' device-memory branch for taps outside the window, and the
+# scalar quads at the tail of each window row in the flush.
+OVERLAP_FAULTS = {
+    "direct_dropped": ("      for (int ch = 0; ch < cc; ++ch) atomicAdd(d + ch, val(ch) * wt[k]);\n", ""),
+    "flush_tail_dropped": ("    if (q >= m && q + 4 <= m + width) {",
+                           "    if (q + 4 > m + width) continue;\n    if (q >= m) {"),
+}
 
 
 def tail_fault(torch, cs, wk) -> dict:
     """chip_smoke's level-0 and ragged warp comparisons with the tail fault built in."""
-    with tempfile.TemporaryDirectory() as tmp:
-        for name in wk.SOURCES:
-            shutil.copy(os.path.join(wk.CSRC_DIR, name), tmp)
-        path = os.path.join(tmp, "warp.cu")
-        with open(path) as f:
-            src = f.read()
-        if src.count(TAIL_FAULT[0]) != 1:
-            raise RuntimeError("the tail fault's site is not in warp.cu")
-        with open(path, "w") as f:
-            f.write(src.replace(*TAIL_FAULT))
-        faulty = wk.load_library(wk.build(csrc_dir=tmp))
+    faulty = wk.load_library(wk.build_patched([TAIL_FAULT], "fault_tail"))
     sound, wk._lib = wk._load(), faulty
     try:
         gen = torch.Generator(device="cuda").manual_seed(1)
@@ -79,6 +84,34 @@ def tail_fault(torch, cs, wk) -> dict:
     finally:
         wk._lib = sound
     return {"level0_max_abs_err": level0, "ragged_caught": ragged}
+
+
+def overlap_fault(torch, cs, wk, name: str, count_lib) -> dict:
+    """chip_smoke's overlap-add comparisons with one of OVERLAP_FAULTS built in:
+    the level-0 splat and warp_bwd_dimg (``check_warp_bwd_dimg``), then every set
+    of ``check_overlap_add``. Returns {comparison: worst error} and the caught ones."""
+    faulty = wk.load_library(wk.build_patched([OVERLAP_FAULTS[name]], f"fault_{name}"))
+    sound, wk._lib = wk._load(), faulty
+    worst, caught = {}, set()
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        try:
+            cs.check_warp_bwd_dimg(torch, wk, gen)
+        except RuntimeError:
+            caught.add("warp_bwd_dimg level0")
+        _, tx, ty = cs.level0_inputs(torch, torch.float32, gen, b=2 * cs.B)
+        e = cs.max_err(wk.splat(tx, ty, cs.H, cs.W), wk.splat_plain(tx, ty, cs.H, cs.W))
+        worst["splat level0"] = e
+        if not e <= cs.TOL[("splat", "float32")]:
+            caught.add("splat level0")
+        for r in cs.check_overlap_add(torch, wk, gen, count_lib):
+            key = f"{r['kernel']} {r['set'].split(' ')[0]}"
+            worst[key] = max(worst.get(key, 0.0), r["err"])
+            if not r["err"] <= r["tol"]:
+                caught.add(key)
+    finally:
+        wk._lib = sound
+    return {"max_abs_err": worst, "caught_by": sorted(caught)}
 
 
 def main() -> int:
@@ -182,7 +215,13 @@ def main() -> int:
     print(f"tail_dropped      level-0 max_abs_err {tail['level0_max_abs_err']} (tol "
           f"{cs.TOL[('warp_fwd', 'float32')]}, {cs.TOL[('warp_bwd', 'float32')]}); ragged check: "
           + (tail["ragged_caught"] or "not caught"), flush=True)
-    print(json.dumps({"device": smi, "cases": out, "tail_dropped": tail}))
+    count_lib = wk.load_library(wk.build_patched(wk.COUNT_TAPS, "count_taps"))
+    overlap = {}
+    for name in OVERLAP_FAULTS:
+        overlap[name] = r = overlap_fault(torch, cs, wk, name, count_lib)
+        print(f"{name:17s} " + "  ".join(f"{k} {v:.3e}" for k, v in r["max_abs_err"].items())
+              + f"  caught by {r['caught_by'] or 'nothing'}", flush=True)
+    print(json.dumps({"device": smi, "cases": out, "tail_dropped": tail, **overlap}))
     return 0
 
 
