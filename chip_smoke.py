@@ -42,7 +42,26 @@ Phases, each timed:
                 backward-density and with the bidirectional occlusion masks;
                 and the bf16 AMD forward; on the card against the port's plain
                 CPU path (which the tests hold to the JAX package), TF32 off;
-7. timing     - each kernel, its plain version and a PyTorch library call at
+7. rcf_step   - three RCF stage-1 training steps of the DAVIS recipe
+                (``configs/rcf/rcf_stage1.yaml``: ResNet-50 OS8, the mask head
+                2304->256 with the fused conv0, the residual head 4096->256,
+                the flow-aggregation head, 96^2 masks, Adam, the EMA on) at
+                batch 8 pairs of 384^2 frames and flows, random weights from
+                seed 0, f32 (TF32 convolutions); fails on a non-finite loss,
+                parameter or statistic, or an EMA tensor that did not move;
+                the step ms and the peak memory;
+8. rcf_step_bf16 - the same for the SegTrackv2 recipe
+                (``configs/rcf_stv2/rcf_stage1.yaml``) in bf16: the affine WLS,
+                compactness on channel 0, 48^2 masks from stage 4 only;
+9. rcf_reference - one DAVIS stage-1 step at full width on 2 pairs of 128^2
+                frames on the card against the port's CPU path, TF32 off: the
+                losses, the mask probabilities, the weight gradients of
+                ``decode_head2.conv_seg`` and ``flow_feat_after_agg[0]``, the
+                EMA's increment, and ``demean_affine_flow`` alone; then one
+                SegTrackv2 step in bf16 at the same size: its losses
+                (``loss_compactness`` among them), probabilities and mask
+                logits; each beside its limit (``RCF_REF_LIMITS``);
+10. timing    - each kernel, its plain version and a PyTorch library call at
                 the level-0 shape on i.i.d. flows (N(0, 5^2) per pixel), with
                 CUDA events. ``ms``, ``library_ms``, ``plain_ms``: a loop of
                 20 eager calls on one input set (the readings of earlier
@@ -64,8 +83,9 @@ Phases, each timed:
                 in bf16 (C=2) on both flow kinds, each with its bound (the
                 splat's and warp_bwd_dimg's without their buffer's zero fill).
 
-Prints a ``{"kernels": [...]}`` line, the f32 and bf16 step times and the
-phase seconds, the card's name and power limit, and as the last line
+Prints a ``{"kernels": [...]}`` line, a line with the AMD and stage-1 step
+times (f32 and bf16), the stage-1 peak memory and reference readings and
+the phase seconds, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed phase raises: the exit code is then not 0 and no result line is
 printed. Without a CUDA device, or without the package beside it, it exits
@@ -75,6 +95,7 @@ with an error at once.
 from __future__ import annotations
 
 import concurrent.futures
+import copy
 import json
 import math
 import subprocess
@@ -175,6 +196,70 @@ TRAIN_CFG = {"optimizer": "adam", "learning_rate": 1e-4, "weight_decay": 1e-6, "
              "lr_scheduler_kwargs": {"power": 0.9, "min_lr": 1e-6}}
 STEPS_PER_EPOCH = 100
 
+# The RCF stage-1 recipes as resolved from their YAMLs (this machine's twin
+# with the card has no yaml; tests/test_torch_rcf_step.py holds these equal
+# to configs/rcf/rcf_stage1.yaml and configs/rcf_stv2/rcf_stage1.yaml).
+_RCF_DAVIS_KWARGS = {
+    "w_seg": 1.0, "w_sharpen": 0, "w_entropy": 0.05, "separate_residual": True,
+    "mask_layer": 4, "align_corners": False, "mask_size": [96, 96],
+    "backbone2": {"type": "ResNet", "depth": 50, "num_stages": 4, "out_indices": [0, 1, 2, 3],
+                  "strides": [1, 2, 1, 1], "dilations": [1, 1, 2, 4], "contract_dilation": True,
+                  "norm_cfg": {"type": "SyncBN", "requires_grad": True}, "norm_eval": False,
+                  "style": "pytorch"},
+    "decode_head": {"type": "FlowAggregationHeadWithResidual", "mask_layer": 4,
+                    "flow_feat_before_agg_kernel_size": 3, "num_flow_feat_channels": 64,
+                    "mask_size": [96, 96], "norm_flow": False, "clamp_flow_t": 20.0,
+                    "free_residual": True, "free_residual_with_affine": False,
+                    "outlier_robust_loss": False, "eps": 0.01, "q": 0.4,
+                    "allow_residual_resize": True, "residual_adjustment_scale": 10.0,
+                    "pred_div_coeff": 10.0},
+    "decode_head2": {"type": "FCNHead", "input_transform": "resize_concat",
+                     "in_channels": [256, 2048], "in_index": [0, 3], "channels": 256,
+                     "num_convs": 2, "dilation": 6, "dropout_ratio": 0.1, "num_classes": 4,
+                     "concat_input": False, "align_corners": False},
+    "decode_head3": {"type": "FCNHead", "in_channels": 4096, "in_index": -1, "channels": 256,
+                     "num_convs": 2, "dilation": 6, "dropout_ratio": 0.1, "num_classes": 16,
+                     "concat_input": False, "align_corners": False},
+}
+
+
+def _stv2_kwargs() -> dict:
+    """configs/rcf_stv2/rcf_stage1.yaml: DAVIS's model with its overrides."""
+    kw = copy.deepcopy(_RCF_DAVIS_KWARGS)
+    kw.update(mask_size=[48, 48], allow_mask_resize=False, w_compactness=1.0,
+              compactness_head={"type": "CompactnessHead", "compact_channel": 0})
+    kw["decode_head"].update(mask_size=[48, 48], free_residual=False,
+                             free_residual_with_affine=True, allow_residual_resize=False)
+    kw["decode_head2"].update(input_transform=None, in_channels=2048, in_index=3)
+    return kw
+
+
+_RCF_TRAIN = {"optimizer": "adam", "learning_rate": 1e-4,
+              "lr_scheduler_kwargs": {"power": 0.9, "min_lr": 1e-6}}
+RCF_RECIPES = {
+    "rcf": {"model_kwargs": _RCF_DAVIS_KWARGS, "compute_dtype": "float32",
+            "train": dict(_RCF_TRAIN, weight_decay=1e-4, epochs=200)},
+    "rcf_stv2": {"model_kwargs": _stv2_kwargs(), "compute_dtype": "bfloat16",
+                 "train": dict(_RCF_TRAIN, weight_decay=1e-6, epochs=20)},
+}
+
+
+def rcf_model_kwargs(recipe: str, dropout: float | None = None, mask_size=None) -> dict:
+    """A stage-1 recipe's model_kwargs with the EMA on; optionally the heads'
+    dropout and the masks' size (both heads) replaced."""
+    kw = copy.deepcopy(RCF_RECIPES[recipe]["model_kwargs"])
+    kw["backbone2"]["create_ema"] = True
+    kw["decode_head2"]["create_ema"] = True
+    if dropout is not None:
+        kw["decode_head2"]["dropout_ratio"] = kw["decode_head3"]["dropout_ratio"] = dropout
+    if mask_size is not None:
+        kw["mask_size"] = kw["decode_head"]["mask_size"] = list(mask_size)
+    return kw
+
+
+def rcf_train_cfg(recipe: str, **kw) -> dict:
+    return dict(RCF_RECIPES[recipe]["train"], model_kwargs=rcf_model_kwargs(recipe, **kw))
+
 
 def level0_inputs(torch, dtype, gen, scale=5.0, b=B, h=H, w=W, c=C, smooth=False,
                   smooth_scale=8.0):
@@ -202,6 +287,10 @@ def level0_inputs(torch, dtype, gen, scale=5.0, b=B, h=H, w=W, c=C, smooth=False
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def rms(a) -> float:
+    return float(a.double().square().mean().sqrt())
 
 
 def rel_max(a, b) -> float:
@@ -695,6 +784,200 @@ def phase_reference(torch) -> None:
         raise RuntimeError(f"the card disagrees with the CPU path: {failed}")
 
 
+def rcf_batch(torch, gen, b: int, hw: int, dev: str) -> dict:
+    """A stage-1 batch: b pairs of hw^2 frames (N(0, 1), as normalized frames)
+    and their forward and backward flows at hw^2 (N(0, 5^2) px)."""
+    return {"imgs": torch.randn(b, 2, hw, hw, 3, generator=gen, device=dev),
+            "gt_fw_flows": torch.randn(b, 1, hw, hw, 2, generator=gen, device=dev) * 5.0,
+            "gt_bw_flows": torch.randn(b, 1, hw, hw, 2, generator=gen, device=dev) * 5.0}
+
+
+def phase_rcf_step(torch, wk, recipe: str) -> dict:
+    """Three stage-1 training steps of ``recipe`` at full width (EMA on), batch
+    8 pairs of 384^2 frames and flows, in the recipe's compute dtype; returns
+    the step ms (mean of steps 2-3), the peak memory and the warp kernels'
+    launches (the stage-1 path runs none of them)."""
+    from rcf_tpu_torch.models import build_model
+    from rcf_tpu_torch.train import create_train_state, make_train_step
+
+    dtype = (torch.bfloat16 if RCF_RECIPES[recipe]["compute_dtype"] == "bfloat16"
+             else torch.float32)
+    cfg = rcf_train_cfg(recipe)
+    model = build_model(cfg["model_kwargs"], device="cuda", seed=0, dtype=dtype)
+    state = create_train_state(cfg, model, steps_per_epoch=STEPS_PER_EPOCH)
+    step = make_train_step()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = rcf_batch(torch, gen, B, H, "cuda")
+    ema0 = {k: t.clone() for k, t in model.state_dict().items() if "_ema." in k}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wk.reset_launch_counts()
+    times = []
+    for i in range(STEPS):
+        t0 = time.perf_counter()
+        losses = step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        vals = {k: float(v) for k, v in losses.items()}
+        log(f"{recipe} step {i} ({str(dtype).split('.')[1]}): {times[-1]:.1f} ms, losses {vals}")
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise RuntimeError(f"{recipe}: non-finite loss at step {i}: {vals}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    sd = model.state_dict()
+    if not all(torch.isfinite(t).all() for t in sd.values() if t.is_floating_point()):
+        raise RuntimeError(f"{recipe}: non-finite parameters or statistics after the steps")
+    still = [k for k, t in ema0.items() if torch.equal(sd[k], t)]
+    if still:
+        raise RuntimeError(f"{recipe}: the EMA did not move in {len(still)} tensors: {still[:5]}")
+    counts = dict(wk.LAUNCHES)
+    log(f"{recipe}: {len(ema0)} EMA tensors moved; warp kernel launches {counts}; "
+        f"peak memory {peak:.2f} GiB")
+    return {"step_ms": sum(times[1:]) / len(times[1:]), "peak_gib": peak, "launches": counts}
+
+
+# Stage-1 card-vs-CPU check (TF32 off), the DAVIS recipe's full-width model
+# with the EMA on, no dropout, at 2 pairs of 128^2 frames (32^2 masks): one
+# training step on each device from the same weights and batch. Readings:
+# - every loss of the step, relative (``loss_rel``: the worst key);
+# - the step's mask probabilities, max abs error;
+# - the weight gradients of ``decode_head2.conv_seg`` and of the flow head's
+#   ``flow_feat_after_agg[0]``, each over its largest entry;
+# - the EMA's increment in ``decode_head2_ema.conv_seg`` (weight and bias),
+#   L2 error over its L2 norm (an Adam update is ~lr * sign(g): where a
+#   gradient is float noise the sign may flip, so not the largest entry);
+# - ``demean_affine_flow`` alone on 16 seeded soft masks and smooth flows at
+#   48^2 (the STv2 recipe's masks), over its largest entry;
+# - one step of the SegTrackv2 recipe's model in bf16 (input_transform null,
+#   the affine WLS in the flow head, compactness on channel 0, 16^2 masks)
+#   on the same batch: every loss, relative (``stv2_loss_rel``: the worst
+#   key); the bf16 probabilities, max abs error (``stv2_probs_err``); and the
+#   mask head's logits, RMS error over the RMS gap between the CPU's bf16
+#   and f32 logits of the same step (``stv2_logit_ratio``): a card that ran
+#   this model in f32 reads about 1, whatever the limits on the rest.
+# Sound readings on an H100 (first run): 8.6e-8, 1.2e-5, 3.8e-5, 4.3e-7,
+# 6.6e-9, 1.2e-6; each limit sits 8-15000x above its reading. The STv2 bf16
+# readings: 1.1e-3 (loss_compactness), 3.9e-2 and 0.61 (the card's and the
+# CPU's bf16 convolutions round apart over 50 layers, 0.61 of bf16's own
+# gap), with limits 4.4x, 1.3x and 1.3x above them; the same model run in
+# f32 on the card reads 6.7e-4, 7.1e-2 and 1.00.
+# tools/smoke_fault_check.py prints these readings for each planted fault.
+RCF_REF_HW = 128
+RCF_REF_LIMITS = {"loss_rel": 1e-5, "probs_err": 1e-4, "seg_grad_rel": 1e-3,
+                  "agg_grad_rel": 1e-4, "ema_rel": 1e-4, "affine_rel": 1e-4,
+                  "stv2_loss_rel": 5e-3, "stv2_probs_err": 5e-2, "stv2_logit_ratio": 0.8}
+
+
+def rcf_step_readings(torch, dev: str, recipe: str, gen, dtype=None) -> tuple[dict, object]:
+    """One training step of ``recipe``'s full-width model (EMA on, no dropout,
+    masks scaled with the frames) on 2 pairs of RCF_REF_HW^2 frames drawn from
+    ``gen``, in ``dtype`` (default: the recipe's compute dtype): the losses, the
+    mask head's logits, the probabilities and the EMA's increment in
+    ``decode_head2_ema.conv_seg`` on the CPU, and the model."""
+    from rcf_tpu_torch.models import build_model
+    from rcf_tpu_torch.train import create_train_state, make_train_step
+
+    hw = RCF_REF_HW
+    m = RCF_RECIPES[recipe]["model_kwargs"]["mask_size"][0] * hw // H
+    if dtype is None:
+        dtype = (torch.bfloat16 if RCF_RECIPES[recipe]["compute_dtype"] == "bfloat16"
+                 else torch.float32)
+    cfg = rcf_train_cfg(recipe, dropout=0.0, mask_size=(m, m))
+    model = build_model(cfg["model_kwargs"], device=dev, seed=0, dtype=dtype)
+    state = create_train_state(cfg, model, steps_per_epoch=STEPS_PER_EPOCH)
+    batch = {k: v.to(dev) for k, v in rcf_batch(torch, gen, 2, hw, "cpu").items()}
+    out = {}
+    hooks = [model.register_forward_hook(
+                 lambda mod, i, o: out.update(probs=o[1].detach().float().cpu())),
+             model.decode_head2.register_forward_hook(
+                 lambda mod, i, o: out.update(logits=o.detach().float().cpu()))]
+    seg = model.decode_head2_ema.conv_seg
+    ema0 = torch.cat([seg.weight.flatten(), seg.bias]).clone()
+    losses = make_train_step()(state, batch)
+    for h in hooks:
+        h.remove()
+    out["losses"] = {k: v.item() for k, v in losses.items()}
+    out["ema_inc"] = (torch.cat([seg.weight.flatten(), seg.bias]) - ema0).cpu()
+    return out, model
+
+
+def rcf_reference_readings(torch, dev: str) -> dict:
+    """The stage-1 readings above on one device, TF32 off, returned on the CPU."""
+    from rcf_tpu_torch.losses.common_fate import demean_affine_flow
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        gen = torch.Generator().manual_seed(6)
+        out, model = rcf_step_readings(torch, dev, "rcf", gen)
+        out["seg_grad"] = model.decode_head2.conv_seg.weight.grad.cpu()
+        out["agg_grad"] = model.decode_head.flow_feat_after_agg[0].weight.grad.cpu()
+        del model
+
+        n, m = 2 * B, 48
+        masks = torch.softmax(torch.randn(n, m, m, 4, generator=gen) * 2.0, dim=-1)
+        ys = torch.arange(m, dtype=torch.float32)[:, None, None] / m
+        xs = torch.arange(m, dtype=torch.float32)[None, :, None] / m
+        coef = torch.randn(n, 1, 1, 3, 2, generator=gen) * 6.0
+        flow = coef[..., 0, :] * ys + coef[..., 1, :] * xs + coef[..., 2, :]
+        flow = flow + torch.randn(n, m, m, 2, generator=gen) * 0.5
+        out["affine"] = demean_affine_flow(masks.to(dev), flow.to(dev)).cpu()
+
+        out["stv2"], _ = rcf_step_readings(torch, dev, "rcf_stv2",
+                                           torch.Generator().manual_seed(6))
+        if dev == "cpu":  # the size of bf16's own deviation, for stv2_logit_ratio
+            f32, _ = rcf_step_readings(torch, dev, "rcf_stv2", torch.Generator().manual_seed(6),
+                                       dtype=torch.float32)
+            out["stv2"]["logits_f32"] = f32["logits"]
+        return out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _loss_rels(cpu: dict, cuda: dict) -> dict:
+    return {k: abs(cuda["losses"][k] - v) / abs(v) for k, v in cpu["losses"].items()}
+
+
+def _worst(rels: dict) -> float:
+    return max(rels.values()) if all(map(math.isfinite, rels.values())) else math.inf
+
+
+def rcf_reference_errors(cpu: dict, cuda: dict) -> dict:
+    """The card's stage-1 readings against the CPU's, keyed as ``RCF_REF_LIMITS``
+    (and each loss's own relative error, ``rel_<key>`` and ``stv2_rel_<key>``)."""
+    rels, rels16 = _loss_rels(cpu, cuda), _loss_rels(cpu["stv2"], cuda["stv2"])
+    inc_c, inc_g = cpu["ema_inc"].double(), cuda["ema_inc"].double()
+    return {"loss_rel": _worst(rels),
+            "probs_err": max_err(cuda["probs"], cpu["probs"]),
+            "seg_grad_rel": rel_max(cuda["seg_grad"], cpu["seg_grad"]),
+            "agg_grad_rel": rel_max(cuda["agg_grad"], cpu["agg_grad"]),
+            "ema_rel": float((inc_g - inc_c).norm() / inc_c.norm()),
+            "affine_rel": rel_max(cuda["affine"], cpu["affine"]),
+            "stv2_loss_rel": _worst(rels16),
+            "stv2_probs_err": max_err(cuda["stv2"]["probs"], cpu["stv2"]["probs"]),
+            "stv2_logit_ratio": rms(cuda["stv2"]["logits"] - cpu["stv2"]["logits"])
+            / rms(cpu["stv2"]["logits_f32"] - cpu["stv2"]["logits"]),
+            **{f"rel_{k}": v for k, v in rels.items()},
+            **{f"stv2_rel_{k}": v for k, v in rels16.items()}}
+
+
+def rcf_reference_failures(errs: dict) -> list:
+    return [k for k, lim in RCF_REF_LIMITS.items() if not errs[k] <= lim]
+
+
+def phase_rcf_reference(torch) -> dict:
+    """The stage-1 step on the card against the port's CPU path."""
+    cpu, cuda = rcf_reference_readings(torch, "cpu"), rcf_reference_readings(torch, "cuda")
+    errs = rcf_reference_errors(cpu, cuda)
+    log(f"rcf_reference: losses cuda {cuda['losses']} cpu {cpu['losses']}; STv2 bf16 losses "
+        f"cuda {cuda['stv2']['losses']} cpu {cpu['stv2']['losses']}; "
+        + ", ".join(f"{k} {v:.2e}" + (f" (tol {RCF_REF_LIMITS[k]})" if k in RCF_REF_LIMITS else "")
+                    for k, v in errs.items()))
+    failed = rcf_reference_failures(errs)
+    if failed:
+        raise RuntimeError(f"the stage-1 step on the card disagrees with the CPU: {failed}")
+    return errs
+
+
 def warp_calls(torch, wk, img, cx, cy, g) -> dict:
     """name -> (kernel call, library call, bytes, operations) for warp_fwd and warp_bwd.
 
@@ -937,6 +1220,21 @@ def main() -> int:
     phase_reference(torch)
     phases["reference"] = time.perf_counter() - t0
 
+    rcf = {}
+    for recipe, phase in (("rcf", "rcf_step"), ("rcf_stv2", "rcf_step_bf16")):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rcf[phase] = phase_rcf_step(torch, wk, recipe)
+        phases[phase] = time.perf_counter() - t0
+        log(f"{phase} ({recipe}, {RCF_RECIPES[recipe]['compute_dtype']}, mean of steps 2-{STEPS}, "
+            f"batch {B}x2, 384^2 frames and flows): {rcf[phase]['step_ms']:.1f} ms, peak "
+            f"{rcf[phase]['peak_gib']:.2f} GiB")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rcf_errs = phase_rcf_reference(torch)
+    phases["rcf_reference"] = time.perf_counter() - t0
+
     t0 = time.perf_counter()
     rows = phase_timing(torch, wk, counts, errs)
     phases["timing"] = time.perf_counter() - t0
@@ -945,8 +1243,12 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60)
     phases["total"] = time.perf_counter() - t_all
     print(json.dumps({"kernels": rows}), flush=True)
-    print(json.dumps({"step_ms": step_ms, "step_ms_bf16": step_ms_bf16, "phases_s": phases}),
-          flush=True)
+    print(json.dumps({"step_ms": step_ms, "step_ms_bf16": step_ms_bf16,
+                      "rcf_step_ms": rcf["rcf_step"]["step_ms"],
+                      "rcf_step_ms_bf16": rcf["rcf_step_bf16"]["step_ms"],
+                      "rcf_peak_gib": rcf["rcf_step"]["peak_gib"],
+                      "rcf_peak_gib_bf16": rcf["rcf_step_bf16"]["peak_gib"],
+                      "rcf_reference": rcf_errs, "phases_s": phases}), flush=True)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: no output",
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

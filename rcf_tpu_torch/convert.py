@@ -5,8 +5,12 @@
 ``np.asarray`` reads) and returns the port's ``AMDModel`` state dict:
 conv kernels HWIO -> OIHW, BN scale/bias/mean/var -> weight/bias/
 running_mean/running_var, Flax module names -> the reference's torch
-names. The per-module converters serve the module tests. This module
-imports no JAX: the caller hands it plain arrays.
+names. ``rcf_state_from_jax(variables, ema=None)`` does the same for an
+RCF model (``backbone2``, ``decode_head`` from JAX's ``flow_head``,
+``decode_head2``, ``decode_head3``, and the EMA copies ``backbone2_ema``,
+``decode_head2_ema`` from JAX's ``ema_params``/``ema_stats``). The
+per-module converters serve the module tests. This module imports no
+JAX: the caller hands it plain arrays.
 """
 
 from __future__ import annotations
@@ -71,6 +75,18 @@ def fcn_head_state_from_jax(params: dict, stats: dict) -> dict:
     return out
 
 
+def flow_head_state_from_jax(params: dict) -> dict:
+    """FlowAggregationHead: 3x3 convs -> ``flow_feat_before_agg.{0,2}``, Dense
+    [in, out] -> the 1x1 ``Conv1d`` [out, in, 1] ``flow_feat_after_agg.{0,2}``."""
+    out: dict = {}
+    for i, idx in enumerate((0, 2)):
+        _conv(out, f"flow_feat_before_agg.{idx}", params[f"flow_feat_conv{i}"])
+        dense = params[f"flow_agg_fc{i}"]
+        out[f"flow_feat_after_agg.{idx}.weight"] = _t(np.asarray(dense["kernel"]).T[:, :, None])
+        out[f"flow_feat_after_agg.{idx}.bias"] = _t(dense["bias"])
+    return out
+
+
 def pwc_lite_state_from_jax(params: dict) -> dict:
     out: dict = {}
     for name, sub in params.get("pyramid", {}).items():
@@ -96,4 +112,28 @@ def torch_state_from_jax(variables: dict) -> dict:
     )
     for prefix, sd in parts:
         out.update({f"{prefix}.{k}": v for k, v in sd.items()})
+    return out
+
+
+def _prefixed(prefix: str, sd: dict) -> dict:
+    return {f"{prefix}.{k}": v for k, v in sd.items()}
+
+
+def rcf_state_from_jax(variables: dict, ema: dict | None = None) -> dict:
+    """The port's RCFModel state dict from the JAX RCFModel's variables.
+
+    ``ema``: ``{"params": state.ema_params, "batch_stats": state.ema_stats}``
+    of a JAX train state, for a model built with ``create_ema``.
+    """
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    out = _prefixed("backbone2", resnet_state_from_jax(params["backbone2"], stats["backbone2"]))
+    out.update(_prefixed("decode_head", flow_head_state_from_jax(params["flow_head"])))
+    for head in ("decode_head2", "decode_head3"):
+        out.update(_prefixed(head, fcn_head_state_from_jax(params[head], stats[head])))
+    if ema is not None:
+        ep, es = ema["params"], ema["batch_stats"]
+        out.update(_prefixed("backbone2_ema",
+                             resnet_state_from_jax(ep["backbone2"], es["backbone2"])))
+        out.update(_prefixed("decode_head2_ema",
+                             fcn_head_state_from_jax(ep["decode_head2"], es["decode_head2"])))
     return out

@@ -1,0 +1,1 @@
+from .rcf import RCFModel, build_model  # noqa: F401

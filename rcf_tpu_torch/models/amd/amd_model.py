@@ -15,6 +15,8 @@ and losses stay f32.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from torch import nn
@@ -35,11 +37,18 @@ _FLOW_CFG = UnFlowLossCfg(
     w_real_smooth=0.0, w_ssim=0.85, w_ternary=0.0, warp_pad="border", with_bk=True,
 )
 
+
+@functools.lru_cache(maxsize=8)
+def _imagenet_stats(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(IMAGENET_MEAN, IMAGENET_STD) on ``device``, copied there once."""
+    return (torch.from_numpy(IMAGENET_MEAN).to(device),
+            torch.from_numpy(IMAGENET_STD).to(device))
+
+
 def maybe_normalize(imgs: torch.Tensor) -> torch.Tensor:
     """uint8 frames -> ImageNet-normalized f32 (no-op for float inputs)."""
     if imgs.dtype == torch.uint8:
-        mean = torch.as_tensor(IMAGENET_MEAN, device=imgs.device)
-        std = torch.as_tensor(IMAGENET_STD, device=imgs.device)
+        mean, std = _imagenet_stats(imgs.device)
         return (imgs.float() / 255.0 - mean) / std
     return imgs
 
@@ -109,8 +118,8 @@ class AMDModel(nn.Module):
         if imgs.dtype == torch.uint8:
             raw = imgs.float() / 255.0
         else:
-            raw = (imgs * torch.as_tensor(IMAGENET_STD, device=imgs.device)
-                   + torch.as_tensor(IMAGENET_MEAN, device=imgs.device))
+            mean, std = _imagenet_stats(imgs.device)
+            raw = imgs * std + mean
         dt = self.compute_dtype
         im1 = resize_bilinear(raw[:, 0], self.flow_size, align_corners=True).to(dt)
         im2 = resize_bilinear(raw[:, 1], self.flow_size, align_corners=True).to(dt)

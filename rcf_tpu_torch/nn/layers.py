@@ -82,10 +82,12 @@ class BatchNorm2d(nn.Module):
         return y.to(self.compute_dtype)
 
 
-def he_normal_(w: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-    """Flax's ``he_normal``: truncated normal (+-2 sd), variance 2/fan_in."""
+def he_normal_(w: torch.Tensor, generator: torch.Generator | None = None,
+               scale: float = 2.0) -> torch.Tensor:
+    """Flax's ``he_normal``: truncated normal (+-2 sd), variance scale/fan_in
+    (``scale=1`` is ``lecun_normal``, Flax's ``Dense`` default)."""
     fan_in = w[0].numel()
-    std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
+    std = math.sqrt(scale / fan_in) / 0.87962566103423978
     lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
     with torch.no_grad():
         w.uniform_(lo, hi, generator=generator).erfinv_().mul_(std * math.sqrt(2.0))
@@ -95,11 +97,13 @@ def he_normal_(w: torch.Tensor, generator: torch.Generator | None = None) -> tor
 def init_weights(module: nn.Module, generator: torch.Generator | None = None) -> None:
     """Initialize every conv as the JAX package does: he-normal kernels, zero biases.
 
+    A ``Conv1d`` with a kernel of 1 is a Flax ``Dense`` there (the flow
+    head's ``flow_feat_after_agg``) and gets its lecun-normal kernel.
     Modules that need another init (``FCNHead.conv_seg``) override it after.
     """
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
-            he_normal_(m.weight, generator)
+        if isinstance(m, (nn.Conv2d, nn.Conv1d)):
+            he_normal_(m.weight, generator, scale=1.0 if isinstance(m, nn.Conv1d) else 2.0)
             if m.bias is not None:
                 with torch.no_grad():
                     m.bias.zero_()

@@ -4,7 +4,13 @@ Depths 18/34/50/101/152, per-stage strides and dilations,
 ``contract_dilation``, multi-feature ``out_indices``, 'pytorch' style
 (stride on the bottleneck's 3x3 conv), 7x7 stem. The AMD config runs depth 50,
 strides [1, 2, 1, 1], dilations [1, 1, 1, 2], no contract_dilation:
-output stride 8.
+output stride 8; the RCF recipes dilations [1, 1, 2, 4] with
+contract_dilation.
+
+``norm_cfg`` and ``style`` are accepted for config parity, as in JAX
+(SyncBN is plain BN on one card; the style is 'pytorch').
+``norm_eval=True`` keeps every BN on its running statistics, in training
+too: ``train()`` leaves them in eval mode.
 
 State-dict keys follow torchvision/mmseg (``conv1``, ``bn1``,
 ``layer{s}.{b}.conv{i}``, ``layer{s}.{b}.downsample.{0,1}``). ``forward``
@@ -87,9 +93,12 @@ class ResNet(nn.Module):
                  strides: Sequence[int] = (1, 2, 2, 2),
                  dilations: Sequence[int] = (1, 1, 1, 1),
                  out_indices: Sequence[int] = (0, 1, 2, 3),
-                 contract_dilation: bool = False, dtype: torch.dtype = torch.float32):
+                 contract_dilation: bool = False, norm_eval: bool = False,
+                 style: str = "pytorch", norm_cfg: dict | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.out_indices = tuple(out_indices)
+        self.norm_eval = norm_eval
         block = BasicBlock if depth in _BASIC_DEPTHS else Bottleneck
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False, compute_dtype=dtype)
         self.bn1 = BatchNorm2d(64, dtype)
@@ -112,6 +121,15 @@ class ResNet(nn.Module):
             stage_channels.append(inplanes)
         # Channels of each returned feature, in ``forward``'s order.
         self.out_channels = tuple(c for i, c in enumerate(stage_channels) if i in self.out_indices)
+        self.train()  # a new module trains: with norm_eval, its BNs do not
+
+    def train(self, mode: bool = True) -> "ResNet":
+        super().train(mode)
+        if self.norm_eval:
+            for m in self.modules():
+                if isinstance(m, BatchNorm2d):
+                    m.eval()
+        return self
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
         """x [N, H, W, 3] -> the ``out_indices`` stage features, each [N, h, w, C]."""

@@ -5,6 +5,12 @@ Port of ``rcf_tpu/ops/resize.py``: static 1-D interpolation matrices
 ``[..., H, W, C]`` tensor. Matches ``F.interpolate`` (bilinear with either
 ``align_corners``, and ``nearest``) without antialiasing, and computes
 exactly what the JAX package computes.
+
+The matrices are copied to a device once and kept there
+(``utils/constants.py::device_constant``, keyed by the size pair, the mode,
+``align_corners``, the device and the dtype), as JAX keeps them as
+compile-time constants: after the first call a resize makes no
+host-to-device copy, which on a card would wait for the stream.
 """
 
 from __future__ import annotations
@@ -13,6 +19,8 @@ import functools
 
 import numpy as np
 import torch
+
+from ..utils.constants import device_constant
 
 
 @functools.lru_cache(maxsize=256)
@@ -44,12 +52,10 @@ def _nearest_matrix(in_size: int, out_size: int) -> np.ndarray:
     return mat
 
 
-def _apply_separable(x: torch.Tensor, mh: np.ndarray, mw: np.ndarray) -> torch.Tensor:
+def _apply_separable(x: torch.Tensor, mh: torch.Tensor, mw: torch.Tensor) -> torch.Tensor:
     """Apply row/col matrices over the (-3, -2) spatial axes of ``x`` (...HWC), in f32."""
-    mh_t = torch.from_numpy(mh).to(x.device)
-    mw_t = torch.from_numpy(mw).to(x.device)
-    y = torch.einsum("oh,...hwc->...owc", mh_t, x.float())
-    y = torch.einsum("pw,...owc->...opc", mw_t, y)
+    y = torch.einsum("oh,...hwc->...owc", mh, x.float())
+    y = torch.einsum("pw,...owc->...opc", mw, y)
     return y.to(x.dtype)
 
 
@@ -59,7 +65,9 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int], align_corners: boo
     oh, ow = out_hw
     if (h, w) == (oh, ow):
         return x
-    return _apply_separable(x, _linear_matrix(h, oh, align_corners), _linear_matrix(w, ow, align_corners))
+    dev = x.device
+    return _apply_separable(x, device_constant(_linear_matrix, (h, oh, align_corners), dev),
+                            device_constant(_linear_matrix, (w, ow, align_corners), dev))
 
 
 def resize_nearest(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
@@ -68,4 +76,6 @@ def resize_nearest(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     oh, ow = out_hw
     if (h, w) == (oh, ow):
         return x
-    return _apply_separable(x, _nearest_matrix(h, oh), _nearest_matrix(w, ow))
+    dev = x.device
+    return _apply_separable(x, device_constant(_nearest_matrix, (h, oh), dev),
+                            device_constant(_nearest_matrix, (w, ow), dev))

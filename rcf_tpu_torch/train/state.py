@@ -5,7 +5,15 @@ Port of ``rcf_tpu/train/state.py`` for the optimizer the AMD recipe uses:
 gradient before the moments (not AdamW), betas (0.9, 0.999), eps 1e-8,
 as ``make_optimizer`` chains ``add_decayed_weights`` ahead of
 ``scale_by_adam``. The learning rate of update ``k`` (0-based) is
-``poly_epoch_schedule(k)``, as optax counts. No EMA.
+``poly_epoch_schedule(k)``, as optax counts.
+
+EMA (RCF models built with ``backbone2.create_ema``): the model's copies
+``backbone2_ema`` and ``decode_head2_ema`` take no optimizer update; the
+state resets them to the weights it starts from, as JAX's
+``create_train_state`` copies its ``ema_params``/``ema_stats``, and
+``ema_update`` moves their parameters and BN running statistics after
+each Adam update: ``ema = ema * m + new * (1 - m)``, ``m = ema_m``, from the
+updated parameters and the step's new statistics.
 
 Frozen subtrees, as ``make_optimizer``'s ``optax.set_to_zero`` mask:
 ``model_kwargs.freeze_backbone`` freezes ``backbone2`` and
@@ -36,12 +44,36 @@ def poly_epoch_schedule(base_lr: float, min_lr: float, power: float, epochs: int
     return schedule
 
 
+EMA_SUBTREES = ("backbone2", "decode_head2")
+
+
 @dataclass
 class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     schedule: Callable[[int], float]
     step: int = 0
+    ema_m: float | None = None  # None: no EMA
+
+
+def _ema_pairs(model: nn.Module) -> tuple[list, list]:
+    """(EMA tensors, their sources): parameters and float buffers of each EMA subtree."""
+    ema, src = [], []
+    for name in EMA_SUBTREES:
+        own = dict(getattr(model, name).state_dict(keep_vars=True))
+        for key, t in getattr(model, f"{name}_ema").state_dict(keep_vars=True).items():
+            if t.is_floating_point():
+                ema.append(t.data)
+                src.append(own[key].data)
+    return ema, src
+
+
+@torch.no_grad()
+def ema_update(model: nn.Module, m: float) -> None:
+    """ema = ema * m + new * (1 - m) over the EMA subtrees, rounded as JAX's lerp."""
+    ema, src = _ema_pairs(model)
+    torch._foreach_mul_(ema, m)
+    torch._foreach_add_(ema, torch._foreach_mul(src, 1.0 - m))
 
 
 def compute_dtype(cfg: dict) -> torch.dtype:
@@ -77,7 +109,16 @@ def create_train_state(cfg: dict, model: nn.Module, steps_per_epoch: int) -> Tra
     frozen = _frozen_subtrees(cfg)
     for name in frozen:
         getattr(model, name).requires_grad_(False)
-    params = [p for name, p in model.named_parameters() if name.split(".")[0] not in frozen]
+    ema_names = tuple(f"{k}_ema" for k in EMA_SUBTREES)
+    params = [p for name, p in model.named_parameters()
+              if name.split(".")[0] not in frozen + ema_names]
     optimizer = torch.optim.Adam(params, lr=schedule(0), betas=(0.9, 0.999),
                                  eps=1e-8, weight_decay=float(cfg.get("weight_decay", 0.0)))
-    return TrainState(model=model, optimizer=optimizer, schedule=schedule)
+    ema_m = None
+    if ((cfg.get("model_kwargs") or {}).get("backbone2") or {}).get("create_ema", False):
+        if not getattr(model, "has_ema", False):
+            raise ValueError("the recipe asks for an EMA; build the model from the same "
+                             "model_kwargs (backbone2.create_ema)")
+        model.copy_to_ema_()
+        ema_m = float(model.ema_m)
+    return TrainState(model=model, optimizer=optimizer, schedule=schedule, ema_m=ema_m)

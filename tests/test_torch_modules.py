@@ -113,13 +113,17 @@ def test_fcn_head_matches_jax():
 
 
 def test_fcn_head_default_concat_input_raises():
-    """JAX's FCNHead defaults to concat_input=True (a conv_cat fusion), which the
-    port does not build: a head made without the key raises, as one made with
-    concat_input=True does, instead of silently differing from JAX's."""
+    """JAX's FCNHead defaults to concat_input=True (a conv_cat fusion). The port
+    builds it too, so a head made without the key has its ``conv_cat``, as
+    JAX's has (tests/test_torch_rcf_modules.py holds it to JAX's). What still
+    raises is ``multiple_select``, on which the JAX head fails."""
     assert JaxFCNHead(num_classes=5).concat_input
+    assert hasattr(FCNHead(num_classes=5, in_channels=24, in_index=3), "conv_cat")
+    assert not hasattr(FCNHead(num_classes=5, in_channels=24, in_index=3, concat_input=False),
+                       "conv_cat")
     with pytest.raises(NotImplementedError):
-        FCNHead(num_classes=5, in_channels=24, in_index=3)
-    FCNHead(num_classes=5, in_channels=24, in_index=3, concat_input=False)
+        FCNHead(num_classes=5, in_channels=[8, 24], in_index=[0, 3],
+                input_transform="multiple_select")
 
 
 def test_mask_pool_bf16_matches_jax():

@@ -41,7 +41,28 @@ repository's sources stay as they are):
 
 for these two it prints the worst error of each of chip_smoke's
 overlap-add comparisons (level 0, and ``check_overlap_add``'s sets) and
-which catch it. Last, one JSON line. Needs a CUDA device; imports no JAX.
+which catch it.
+
+Then the stage-1 RCF step's card-vs-CPU check (``chip_smoke.rcf_reference_*``:
+the DAVIS step's losses, mask probabilities, two weight gradients and the
+EMA's increment, the affine WLS alone, the bf16 SegTrackv2 step's losses and
+probabilities), sound and with one fault at a time planted at run time on
+the card's side:
+
+* ``quirk_true_log``: the entropy's ``quirk_log`` (a log-softmax of the
+  probabilities, the reference's quirk) replaced by a true log;
+* ``residual_bn_running``: the residual head's BN on running statistics
+  (the model's ``train()`` puts it in eval mode) instead of batch statistics;
+* ``ema_before_adam``: the train step moves the EMA before the Adam update;
+* ``affine_solve_bf16``: the affine WLS solved on bf16-rounded systems,
+  its result rounded to bf16, instead of in f32;
+* ``softmax_f32``: the mask softmax computed in f32 and rounded to bf16 at
+  the end, where JAX's bf16 softmax rounds step by step;
+* ``stv2_in_f32``: the bf16 SegTrackv2 model run in f32 on the card (its
+  probabilities f32), the fault a bf16 check that the convolutions' noise
+  swamps would miss.
+
+Last, one JSON line. Needs a CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
@@ -112,6 +133,82 @@ def overlap_fault(torch, cs, wk, name: str, count_lib) -> dict:
     finally:
         wk._lib = sound
     return {"max_abs_err": worst, "caught_by": sorted(caught)}
+
+
+def rcf_faults(torch, cs) -> dict:
+    """chip_smoke's stage-1 readings, sound and with each planted fault."""
+    import rcf_tpu_torch.train as train_pkg
+    from rcf_tpu_torch.losses import common_fate, regularizers
+    from rcf_tpu_torch.models.rcf import RCFModel
+    import rcf_tpu_torch.models as models_pkg
+    from rcf_tpu_torch.models import rcf as rcf_mod
+    from rcf_tpu_torch.nn.layers import BatchNorm2d
+    from rcf_tpu_torch.train.state import ema_update
+
+    quirk_log, solve, rcf_train = regularizers.quirk_log, common_fate.solve, RCFModel.train
+    softmax, build_model = rcf_mod.softmax, models_pkg.build_model
+
+    def true_log(p, dim=-1):
+        return torch.log(p) if p.is_cuda else quirk_log(p, dim)
+
+    def residual_bn_running(self, mode=True):
+        rcf_train(self, mode)
+        if next(self.parameters()).is_cuda:
+            for m in self.decode_head3.modules():
+                if isinstance(m, BatchNorm2d):
+                    m.eval()
+        return self
+
+    def ema_before_adam():
+        def train_step(state, batch, generator=None):
+            state.model.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            losses, _ = state.model(**batch, generator=generator)
+            losses["loss"].backward()
+            for group in state.optimizer.param_groups:
+                group["lr"] = state.schedule(state.step)
+            if state.ema_m is not None:
+                ema_update(state.model, state.ema_m)
+            state.optimizer.step()
+            state.step += 1
+            return {k: v.detach() for k, v in losses.items()}
+        return train_step
+
+    def solve_bf16(a, b):
+        if not a.is_cuda:
+            return solve(a, b)
+        return solve(a.bfloat16().float(), b.bfloat16().float()).bfloat16().float()
+
+    def softmax_f32(x, dim=-1):
+        return torch.softmax(x.float(), dim).to(x.dtype) if x.is_cuda else softmax(x, dim)
+
+    def build_f32_on_card(model_kwargs, device="cuda", seed=0, dtype=torch.float32):
+        return build_model(model_kwargs, device=device, seed=seed,
+                           dtype=torch.float32 if torch.device(device).type == "cuda" else dtype)
+
+    faults = {"sound": [],
+              "quirk_true_log": [(regularizers, "quirk_log", true_log)],
+              "residual_bn_running": [(RCFModel, "train", residual_bn_running)],
+              "ema_before_adam": [(train_pkg, "make_train_step", ema_before_adam)],
+              "affine_solve_bf16": [(common_fate, "solve", solve_bf16)],
+              "softmax_f32": [(rcf_mod, "softmax", softmax_f32)],
+              "stv2_in_f32": [(models_pkg, "build_model", build_f32_on_card)]}
+    cpu = cs.rcf_reference_readings(torch, "cpu")
+    out = {}
+    for case, patches in faults.items():
+        saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+        for obj, name, fn in patches:
+            setattr(obj, name, fn)
+        try:
+            errs = cs.rcf_reference_errors(cpu, cs.rcf_reference_readings(torch, "cuda"))
+        finally:
+            for obj, name, fn in saved:
+                setattr(obj, name, fn)
+        caught = cs.rcf_reference_failures(errs)
+        out[case] = {**errs, "caught_by": caught}
+        print(f"rcf {case:19s} " + "  ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f"  caught by {caught or 'nothing'}", flush=True)
+    return out
 
 
 def main() -> int:
@@ -221,7 +318,10 @@ def main() -> int:
         overlap[name] = r = overlap_fault(torch, cs, wk, name, count_lib)
         print(f"{name:17s} " + "  ".join(f"{k} {v:.3e}" for k, v in r["max_abs_err"].items())
               + f"  caught by {r['caught_by'] or 'nothing'}", flush=True)
-    print(json.dumps({"device": smi, "cases": out, "tail_dropped": tail, **overlap}))
+    print(f"stage-1 limits {cs.RCF_REF_LIMITS}", flush=True)
+    rcf = rcf_faults(torch, cs)
+    print(json.dumps({"device": smi, "cases": out, "tail_dropped": tail, **overlap,
+                      "rcf": rcf}))
     return 0
 
 
