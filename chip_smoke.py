@@ -23,7 +23,11 @@ Phases, each timed:
                 the source), at the same tolerances, with the taps of each
                 branch (window, device memory) counted by the test build on
                 the same inputs: the far set must reach the device-memory
-                branch, the gentle smooth set only the window;
+                branch, the gentle smooth set only the window; then
+                (``crf_kernel``) crf_filter against its plain version with
+                TF32 matmuls on, on the DAVIS grid (16 x 96^2, D=5), i.i.d.
+                features, a ragged N (3 x 97 x 61), D=2 and the SegTrackv2
+                grid (16 x 128^2), each at its limit (``CRF_TOL``);
 3. step       - three AMD training steps (ResNet-50 OS8 + FCN mask head +
                 PWC-Lite + unFlow loss, Adam) at batch 8 pairs of 384^2
                 frames, flow_size 384x640, random weights from a seed, in f32
@@ -53,7 +57,14 @@ Phases, each timed:
 8. rcf_step_bf16 - the same for the SegTrackv2 recipe
                 (``configs/rcf_stv2/rcf_stage1.yaml``) in bf16: the affine WLS,
                 compactness on channel 0, 48^2 masks from stage 4 only;
-9. rcf_reference - one DAVIS stage-1 step at full width on 2 pairs of 128^2
+9. rcf_step_crf, rcf_step_crf_bf16 - three stage-2.1 steps of the DAVIS
+                recipe (``configs/rcf/rcf_stage2.1.yaml``: the CRF target of
+                the EMA's masks on a 96^2 grid, the MAP-stability exit, f32)
+                and of the SegTrackv2 recipe (128^2, a fixed 50 iterations,
+                bf16) on frames with flat colour regions (``crf_frames``),
+                object channel 0 set: step ms, peak memory, mean-field
+                iterations, host syncs and crf_filter launches per step;
+10. rcf_reference - one DAVIS stage-1 step at full width on 2 pairs of 128^2
                 frames on the card against the port's CPU path, TF32 off: the
                 losses, the mask probabilities, the weight gradients of
                 ``decode_head2.conv_seg`` and ``flow_feat_after_agg[0]``, the
@@ -61,7 +72,10 @@ Phases, each timed:
                 SegTrackv2 step in bf16 at the same size: its losses
                 (``loss_compactness`` among them), probabilities and mask
                 logits; each beside its limit (``RCF_REF_LIMITS``);
-10. timing    - each kernel, its plain version and a PyTorch library call at
+11. rcf_crf_reference - the stage-2.1 CRF of each recipe on identical inputs
+                (MAP, q1, each image's iterations) and one stage-2.1 step of
+                each recipe on the card against the CPU (``RCF_CRF_REF_LIMITS``);
+12. timing    - each kernel, its plain version and a PyTorch library call at
                 the level-0 shape on i.i.d. flows (N(0, 5^2) per pixel), with
                 CUDA events. ``ms``, ``library_ms``, ``plain_ms``: a loop of
                 20 eager calls on one input set (the readings of earlier
@@ -81,11 +95,15 @@ Phases, each timed:
                 on both flow kinds in f32, and at level 0 in bf16 (the library
                 on bf16 NCHW with a bf16 grid), and warp_bwd_dimg at level 0
                 in bf16 (C=2) on both flow kinds, each with its bound (the
-                splat's and warp_bwd_dimg's without their buffer's zero fill).
+                splat's and warp_bwd_dimg's without their buffer's zero fill);
+                crf_filter on the DAVIS and (keys ``*_stv2``) SegTrackv2
+                grids beside its bound (ex2 and FP32 instructions) and
+                ``scaled_dot_product_attention`` computing the same filter.
 
-Prints a ``{"kernels": [...]}`` line, a line with the AMD and stage-1 step
-times (f32 and bf16), the stage-1 peak memory and reference readings and
-the phase seconds, the card's name and power limit, and as the last line
+Prints a ``{"kernels": [...]}`` line, a line with the AMD, stage-1 and
+stage-2.1 step times (f32 and bf16), the peak memory, the stage-2.1 mean
+field's iterations and syncs, the reference readings and the phase
+seconds, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed phase raises: the exit code is then not 0 and no result line is
 printed. Without a CUDA device, or without the package beside it, it exits
@@ -241,6 +259,30 @@ RCF_RECIPES = {
             "train": dict(_RCF_TRAIN, weight_decay=1e-4, epochs=200)},
     "rcf_stv2": {"model_kwargs": _stv2_kwargs(), "compute_dtype": "bfloat16",
                  "train": dict(_RCF_TRAIN, weight_decay=1e-6, epochs=20)},
+}
+
+
+def _stage2_1(recipe: str, crf_head: dict, train: dict, **over) -> dict:
+    """configs/<recipe>/rcf_stage2.1.yaml: the stage-1 model with the EMA and the
+    CRF target (its model_kwargs' overrides ``over`` and ``crf_head``), and the
+    stage-1 optimizer with ``train``'s changes."""
+    kw = copy.deepcopy(RCF_RECIPES[recipe]["model_kwargs"])
+    kw.update(w_entropy=0, w_crf=10.0, crf_use_ema=True, ema_m=0.999, crf_pos_weight=2.0,
+              crf_neg_weight=1.0, crf_head={"type": "CRFHead", **crf_head}, **over)
+    kw["backbone2"]["create_ema"] = kw["decode_head2"]["create_ema"] = True
+    return {"model_kwargs": kw, "compute_dtype": RCF_RECIPES[recipe]["compute_dtype"],
+            "train": dict(RCF_RECIPES[recipe]["train"], **train)}
+
+
+# The stage-2.1 recipes (DAVIS: the CRF on a 96^2 grid with the MAP-stability
+# exit; SegTrackv2: 128^2, a fixed 50 iterations, bf16), held equal to their
+# YAMLs by tests/test_torch_rcf_stage2_1.py.
+RCF_CRF_RECIPES = {
+    "rcf": _stage2_1("rcf", {"resolution": [96, 96], "stable_exit": True},
+                     {"learning_rate": 1e-5, "epochs": 20}),
+    "rcf_stv2": _stage2_1("rcf_stv2", {"resolution": [128, 128]},
+                          {"learning_rate": 1e-5, "weight_decay": 5e-6},
+                          w_compactness=0, compactness_head=None),
 }
 
 
@@ -792,26 +834,55 @@ def rcf_batch(torch, gen, b: int, hw: int, dev: str) -> dict:
             "gt_bw_flows": torch.randn(b, 1, hw, hw, 2, generator=gen, device=dev) * 5.0}
 
 
-def phase_rcf_step(torch, wk, recipe: str) -> dict:
-    """Three stage-1 training steps of ``recipe`` at full width (EMA on), batch
-    8 pairs of 384^2 frames and flows, in the recipe's compute dtype; returns
-    the step ms (mean of steps 2-3), the peak memory and the warp kernels'
-    launches (the stage-1 path runs none of them)."""
-    from rcf_tpu_torch.models import build_model
-    from rcf_tpu_torch.train import create_train_state, make_train_step
+def crf_frames(torch, gen, n: int, hw: int, dev: str, block: int = 32):
+    """n normalized frames [n, hw, hw, 3] with flat colour regions and edges:
+    N(0, 1) colours on blocks of block^2 pixels, plus N(0, 0.05^2) (about 3
+    uint8 levels) of noise. The mean field runs several iterations on such
+    content (1-16 measured on the card); on i.i.d. noise frames it stops
+    after one or two."""
+    cells = -(-hw // block)
+    c = torch.randn(n, cells, cells, 3, generator=gen, device=dev)
+    x = c.repeat_interleave(block, 1).repeat_interleave(block, 2)[:, :hw, :hw]
+    return x + 0.05 * torch.randn(n, hw, hw, 3, generator=gen, device=dev)
 
-    dtype = (torch.bfloat16 if RCF_RECIPES[recipe]["compute_dtype"] == "bfloat16"
-             else torch.float32)
-    cfg = rcf_train_cfg(recipe)
+
+def rcf_crf_batch(torch, gen, b: int, hw: int, dev: str) -> dict:
+    """A stage-2.1 batch: ``rcf_batch`` with ``crf_frames`` as the frames, and the
+    object channel 0 set (the YAMLs' ``object_channel: 0``)."""
+    batch = rcf_batch(torch, gen, b, hw, dev)
+    batch["imgs"] = crf_frames(torch, gen, 2 * b, hw, dev).reshape(b, 2, hw, hw, 3)
+    return dict(batch, object_channel=0, object_channel_set=True)
+
+
+def phase_rcf_step(torch, wk, recipe: str, crf: bool = False) -> dict:
+    """Three training steps of ``recipe`` at full width (EMA on), batch 8 pairs
+    of 384^2 frames and flows, in the recipe's compute dtype: stage 1, or with
+    ``crf`` stage 2.1, the CRF target made from the EMA each step. Returns the
+    step ms (mean of steps 2-3), the peak memory and the kernels' launches
+    (stage 1 runs none of them); for stage 2.1 also the mean field's
+    iterations and host syncs and crf_filter's launches per step, failing if
+    crf_filter never launched."""
+    from rcf_tpu_torch.models import build_model
+    from rcf_tpu_torch.ops import crf as crf_ops
+    from rcf_tpu_torch.ops import crf_kernels as ck
+    from rcf_tpu_torch.train import create_train_state, make_train_step, maybe_crf_fn
+
+    recipes = RCF_CRF_RECIPES if crf else RCF_RECIPES
+    dtype = (torch.bfloat16 if recipes[recipe]["compute_dtype"] == "bfloat16" else torch.float32)
+    cfg = (dict(recipes[recipe]["train"], model_kwargs=recipes[recipe]["model_kwargs"]) if crf
+           else rcf_train_cfg(recipe))
     model = build_model(cfg["model_kwargs"], device="cuda", seed=0, dtype=dtype)
     state = create_train_state(cfg, model, steps_per_epoch=STEPS_PER_EPOCH)
-    step = make_train_step()
+    step = make_train_step(crf_fn=maybe_crf_fn(model))
     gen = torch.Generator(device="cuda").manual_seed(0)
-    batch = rcf_batch(torch, gen, B, H, "cuda")
+    batch = (rcf_crf_batch if crf else rcf_batch)(torch, gen, B, H, "cuda")
     ema0 = {k: t.clone() for k, t in model.state_dict().items() if "_ema." in k}
+    name = f"{recipe} stage {'2.1' if crf else '1'}"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     wk.reset_launch_counts()
+    ck.reset_launch_counts()
+    crf_ops.reset_stats()
     times = []
     for i in range(STEPS):
         t0 = time.perf_counter()
@@ -819,20 +890,40 @@ def phase_rcf_step(torch, wk, recipe: str) -> dict:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         vals = {k: float(v) for k, v in losses.items()}
-        log(f"{recipe} step {i} ({str(dtype).split('.')[1]}): {times[-1]:.1f} ms, losses {vals}")
+        log(f"{name} step {i} ({str(dtype).split('.')[1]}): {times[-1]:.1f} ms, losses {vals}")
         if not all(math.isfinite(v) for v in vals.values()):
-            raise RuntimeError(f"{recipe}: non-finite loss at step {i}: {vals}")
+            raise RuntimeError(f"{name}: non-finite loss at step {i}: {vals}")
+        if crf and "loss_crf" not in vals:
+            raise RuntimeError(f"{name}: no loss_crf at step {i}")
     peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = dict(wk.LAUNCHES)
+    out = {"step_ms": sum(times[1:]) / len(times[1:]), "peak_gib": peak, "launches": counts}
+    counts.update(ck.LAUNCHES)
+    if crf:
+        out.update(iterations_per_step=crf_ops.STATS["iterations"] / STEPS,
+                   host_syncs_per_step=crf_ops.STATS["host_syncs"] / STEPS,
+                   crf_filter_per_step=counts["crf_filter"] / STEPS)
+        if counts["crf_filter"] == 0:
+            raise RuntimeError(f"{name}: crf_filter never launched")
     sd = model.state_dict()
     if not all(torch.isfinite(t).all() for t in sd.values() if t.is_floating_point()):
-        raise RuntimeError(f"{recipe}: non-finite parameters or statistics after the steps")
-    still = [k for k, t in ema0.items() if torch.equal(sd[k], t)]
-    if still:
-        raise RuntimeError(f"{recipe}: the EMA did not move in {len(still)} tensors: {still[:5]}")
-    counts = dict(wk.LAUNCHES)
-    log(f"{recipe}: {len(ema0)} EMA tensors moved; warp kernel launches {counts}; "
-        f"peak memory {peak:.2f} GiB")
-    return {"step_ms": sum(times[1:]) / len(times[1:]), "peak_gib": peak, "launches": counts}
+        raise RuntimeError(f"{name}: non-finite parameters or statistics after the steps")
+    # An EMA entry moves by (1 - ema_m) times its gap to the weights: at stage
+    # 2.1's learning rate (1e-5) a BN scale of ~1 moves by ~1e-8, under half an
+    # f32 ulp. A tensor must move where that increment passes one ulp somewhere.
+    eps, m = torch.finfo(torch.float32).eps, cfg["model_kwargs"].get("ema_m", 0.999)
+    due = {k for k, t in ema0.items() if t.is_floating_point() and bool(
+        ((1 - m) * (sd[k.replace("_ema.", ".")] - t).abs() > eps * t.abs()).any())}
+    still = [k for k in due if torch.equal(sd[k], ema0[k])]
+    if still or not due:
+        raise RuntimeError(f"{name}: the EMA did not move in {len(still)} of {len(due)} tensors "
+                           f"due to move: {still[:5]}")
+    log(f"{name}: {len(due)} of {len(ema0)} EMA tensors due to move moved; kernel launches "
+        f"{counts}; peak memory "
+        f"{peak:.2f} GiB" + (f"; per step {out['iterations_per_step']:.1f} mean-field "
+                             f"iterations, {out['host_syncs_per_step']:.1f} host syncs"
+                             if crf else ""))
+    return out
 
 
 # Stage-1 card-vs-CPU check (TF32 off), the DAVIS recipe's full-width model
@@ -975,6 +1066,337 @@ def phase_rcf_reference(torch) -> dict:
     failed = rcf_reference_failures(errs)
     if failed:
         raise RuntimeError(f"the stage-1 step on the card disagrees with the CPU: {failed}")
+    return errs
+
+
+# crf_filter against its plain version on the card, with TF32 matmuls and
+# convolutions switched on (neither side may depend on the switch), each set
+# with its limit on the max abs error (the filtered values lie in [0, 1]).
+# Each logit cancels half-norms of ~1e3 (srgb 5), so both sides carry ~1e-4
+# of f32 rounding in it; on the structured sets each side reads <= 3.6e-5
+# from a float64 filter, <= 5.0e-5 from the other (first chip run, an H100
+# 80GB HBM3 at 700 W);
+# the i.i.d. set, whose pixels have few near neighbours, reads up to 1.4e-4
+# from float64 on the CPU.
+CRF_TOL = {"davis": 2e-4, "iid": 1e-3, "ragged": 2e-4, "d2": 2e-4, "stv2": 2e-4}
+# The filter's operations by the card's units: an ex2 per pair on the
+# multi-function unit (16 per SM and clock, against 128 FP32 lanes doing two
+# flops each), and D + 4 FP32 instructions per pair (the dot's FMAs, the two
+# half-norm subtractions, the sums' FMA and add).
+EX2_PER_S = F32_FLOPS / 16
+FP32_INST_PER_S = F32_FLOPS / 2
+CRF_REPLACES = "rcf_tpu/ops/crf.py:98"  # _normalized_filter: XLA code, not a TPU kernel
+
+
+def crf_bound(b: int, n: int, d: int) -> tuple[float, str]:
+    """The least time of one crf_filter call on b images of n pixels: bytes (the
+    features, values and output once) or operations (the larger of the ex2 and
+    the FP32 instructions of n^2 pairs an image, whatever the data)."""
+    pairs = b * n * n
+    t_ops = max(pairs / EX2_PER_S, pairs * (d + 4) / FP32_INST_PER_S) * 1e3
+    t_bytes = b * n * (d + 2) * 4 / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def crf_features(torch, crf_ops, gen, b: int, h: int, w: int, scale: float):
+    """Appearance features [b, h*w, 5] of ``crf_frames`` (blocks of 8 pixels on
+    the grid, as 32 on the 384^2 frames) at the recipes' sxy 60 and srgb 5,
+    with the grid's ``xy_scale``; features of i.i.d. colours where ``h`` is 0."""
+    rgb = crf_ops.unnormalize_to_uint8(crf_frames(torch, gen, b, max(h, w), "cuda", block=8))
+    return crf_ops.pixel_features(rgb[:, :h, :w].contiguous(), 60.0, 5.0, (scale, scale))
+
+
+def crf_filter_sets(torch, crf_ops, gen) -> dict:
+    """name -> (feat, values) of the kernel phase: the DAVIS grid (16 images of
+    96^2, xy_scale 1/4), i.i.d. features at its scales (x, y in [0, 96/15),
+    colours / 5 in [0, 51)), a ragged N (3 images of 97 x 61), D = 2 (xy
+    features at sxy 3 on 96^2) and the SegTrackv2 grid (16 of 128^2, 1/3)."""
+    n = 96 * 96
+    iid = torch.cat([torch.rand(16, n, 2, generator=gen, device="cuda") * (96 / 15),
+                     torch.rand(16, n, 3, generator=gen, device="cuda") * 51.0], dim=-1)
+    feats = {"davis": crf_features(torch, crf_ops, gen, 16, 96, 96, 0.25), "iid": iid,
+             "ragged": crf_features(torch, crf_ops, gen, 3, 97, 61, 0.25),
+             "d2": crf_ops.xy_features(96, 96, 3.0, device="cuda").expand(16, -1, -1).contiguous(),
+             "stv2": crf_features(torch, crf_ops, gen, 16, 128, 128, 1 / 3)}
+    return {k: (f, torch.rand(f.shape[:2], generator=gen, device="cuda")) for k, f in feats.items()}
+
+
+def crf_filter_f64(torch, feat, values, chunk: int = 512):
+    """The filter in float64 (exp of exact-enough logits): the accuracy yardstick."""
+    f, v = feat.double(), values.double()
+    sq = (f * f).sum(-1) * 0.5
+    out = []
+    for c in range(0, f.shape[1], chunk):
+        w = torch.exp(f[:, c:c + chunk] @ f.transpose(1, 2) - sq[:, None, :]
+                      - sq[:, c:c + chunk, None])
+        out.append((w * v[:, None, :]).sum(-1) / w.sum(-1))
+    return torch.cat(out, dim=1).float()
+
+
+def phase_crf_kernel(torch, ck, crf_ops) -> dict:
+    """crf_filter against crf_filter_plain on every set of ``crf_filter_sets``,
+    TF32 on; each side's distance to float64 is logged. Returns the errors."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        errs, failed = {}, []
+        for name, (feat, vals) in crf_filter_sets(torch, crf_ops, gen).items():
+            out = ck.crf_filter(feat, vals)
+            torch.cuda.synchronize()
+            plain = ck.crf_filter_plain(feat, vals)
+            exact = crf_filter_f64(torch, feat, vals)
+            errs[name] = max_err(out, plain)
+            log(f"kernel crf_filter {name} {list(feat.shape)}: max_abs_err {errs[name]:.3e} "
+                f"(tol {CRF_TOL[name]}); from float64: kernel {max_err(out, exact):.3e}, plain "
+                f"{max_err(plain, exact):.3e}")
+            if not errs[name] <= CRF_TOL[name]:
+                failed.append(name)
+        if failed:
+            raise RuntimeError(f"crf_filter disagrees with its plain version on {failed}")
+        return errs
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def crf_sdpa(torch, feat, values):
+    """The library yardstick: ``F.scaled_dot_product_attention`` computing the
+    same filter, the half-norm folded into one extra feature (q = [f, 1],
+    k = [f, -|f|^2/2], v = [values], head dim padded to 8, ``scale=1.0``, f32).
+    The port never calls it."""
+    import torch.nn.functional as F
+
+    b, n, d = feat.shape
+    q, k, v = (feat.new_zeros(b, 1, n, 8) for _ in range(3))
+    q[..., :d], q[..., d] = feat[:, None], 1.0
+    k[..., :d], k[..., d] = feat[:, None], -0.5 * (feat * feat).sum(-1)[:, None]
+    v[..., 0] = values[:, None]
+    return lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)[:, 0, :, 0]
+
+
+def traced_kernels(torch, fn) -> list:
+    """The CUDA kernels one call of ``fn`` runs, by device time (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evts = [e for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) > 0]
+    evts.sort(key=lambda e: -getattr(e, "self_device_time_total",
+                                     getattr(e, "self_cuda_time_total", 0)))
+    return [e.key for e in evts]
+
+
+def crf_timing(torch, ck, crf_ops, launches: dict, err: float) -> dict:
+    """The crf_filter row: at the DAVIS grid (16 x 96^2, D = 5) and, keys with
+    ``_stv2``, the SegTrackv2 grid (16 x 128^2): ``ms``, ``plain_ms``,
+    ``library_ms`` an eager loop on one input set, ``ms_device``,
+    ``library_ms_device`` device time on ``cold_sets`` input sets (the L2 holds
+    none), the bound, and the yardstick's kernels and error."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    row = {"name": "crf_filter", "route": "cuda", "source": "rcf_tpu_torch/csrc/crf.cu",
+           "replaces": CRF_REPLACES, "replaces_kind": "XLA code, not a TPU kernel",
+           "launches": sum(launches.values()), "launches_per_step": launches,
+           "max_abs_err": err}
+    for suffix, hw, scale in (("", 96, 0.25), ("_stv2", 128, 1 / 3)):
+        def make():
+            f = crf_features(torch, crf_ops, gen, 16, hw, hw, scale)
+            return f, torch.rand(f.shape[:2], generator=gen, device="cuda")
+        feat, vals = make()
+        lib = crf_sdpa(torch, feat, vals)
+        res = {"ms": cuda_ms(torch, lambda: ck.crf_filter(feat, vals)),
+               "plain_ms": cuda_ms(torch, lambda: ck.crf_filter_plain(feat, vals), iters=2,
+                                   warmup=1),
+               "library_ms": cuda_ms(torch, lib)}
+        sets = [(feat, vals)] + [make() for _ in range(cold_sets(nbytes(feat, vals, vals)) - 1)]
+        res["ms_device"] = graph_ms(torch, [lambda f=f, v=v: ck.crf_filter(f, v) for f, v in sets])
+        res["library_ms_device"] = graph_ms(torch, [crf_sdpa(torch, f, v) for f, v in sets])
+        del sets
+        res["bound_ms"], res["bound_by"] = crf_bound(16, hw * hw, 5)
+        res["library_max_abs_err"] = max_err(lib(), ck.crf_filter_plain(feat, vals))
+        res["library_kernels"] = traced_kernels(torch, lib)[:3]
+        log(f"timing crf_filter 16x{hw}^2 D=5: {res['ms']:.4f} ms, device {res['ms_device']:.4f} "
+            f"ms (bound {res['bound_ms']:.4f} ms by {res['bound_by']}, "
+            f"{res['bound_ms'] / res['ms_device']:.0%} of it); plain {res['plain_ms']:.2f} ms; "
+            f"library {res['library_ms']:.4f} ms, device {res['library_ms_device']:.4f} ms, "
+            f"max_abs_err {res['library_max_abs_err']:.2e}, kernels {res['library_kernels']}")
+        row.update({k + suffix: v for k, v in res.items()})
+    return row
+
+
+# Stage-2.1 card-vs-CPU check, TF32 off, in the manner of the stage-1 one:
+# - the CRF on identical inputs, each recipe's settings (DAVIS: f32 masks,
+#   the MAP-stability exit; SegTrackv2: bf16 masks, a fixed 50 iterations)
+#   with the grid scaled with the frames as the masks are (96 and 128 on 384^2
+#   frames: 32 and 43 on 128^2), on 4 seeded ``crf_frames`` of 128^2 and soft
+#   masks, image 0 a clean two-colour split that stops at once: the share of
+#   the grid's MAP that differs (``*_map_differ``), q1's max abs error and
+#   the largest difference in an image's iterations;
+# - one DAVIS stage-2.1 step at full width (f32, EMA on, no dropout, 32^2
+#   masks and CRF grid) on 2 pairs of 128^2 ``crf_frames`` and flows, each
+#   side making its own target: every loss, relative (``crf_loss_rel``: the
+#   worst key, ``loss_crf`` among them), the gradient of
+#   ``decode_head2.conv_seg`` over its largest entry, the EMA's increment in
+#   ``decode_head2_ema.conv_seg`` and in the EMA copies' BN running
+#   statistics, each L2 error over L2 norm, and the target pixels that differ;
+# - one SegTrackv2 stage-2.1 step in bf16 on the same batch (16^2 masks, 43^2
+#   grid): every loss, relative (bf16's looser reading: the tight check of
+#   this recipe is its CRF on identical inputs above).
+# Sound readings on an H100 80GB HBM3 at 700 W (first run, limits beside):
+# DAVIS CRF MAP 0 (1e-3), q1 1.8e-3 (2e-2: where q1 sits near 0.5 an
+# iteration multiplies a difference by up to scomp * 2 * q(1-q) = 2.5, and
+# the filter's f32 noise is ~3e-5), iterations [1, 4, 5, 8] on both (1);
+# SegTrackv2 CRF MAP 0, q1 1.8e-5, iterations 50 (0); the DAVIS step's
+# losses 1.6e-7 (1e-4), gradient 6.8e-6 (1e-3), EMA 3.9e-9 (1e-4), EMA
+# statistics 1.9e-5 (1e-3), its targets equal; the SegTrackv2 step's
+# losses 1.8e-2 (5e-2): the card's and the CPU's bf16 EMA masks round apart
+# (stage 1's probabilities read 3.9e-2), and 0.4% of its target pixels fall
+# on the other side of the MAP threshold, which moves loss_crf.
+# tools/smoke_fault_check.py prints these readings for each planted fault.
+RCF_CRF_REF_LIMITS = {"rcf_map_differ": 1e-3, "rcf_q1_err": 2e-2, "rcf_iters_diff": 1,
+                      "rcf_stv2_map_differ": 1e-3, "rcf_stv2_q1_err": 2e-2,
+                      "rcf_stv2_iters_diff": 0, "crf_loss_rel": 1e-4, "crf_seg_grad_rel": 1e-3,
+                      "crf_ema_rel": 1e-4, "crf_ema_stats_rel": 1e-3,
+                      "crf_stv2_loss_rel": 5e-2}
+
+
+def crf_ref_head(recipe: str) -> dict:
+    """The recipe's crf_head with its grid scaled from 384^2 to RCF_REF_HW^2 frames."""
+    head = dict(RCF_CRF_RECIPES[recipe]["model_kwargs"]["crf_head"])
+    head["resolution"] = [round(r * RCF_REF_HW / H) for r in head["resolution"]]
+    return head
+
+
+def crf_ref_inputs(torch):
+    """4 normalized ``crf_frames`` of RCF_REF_HW^2 and soft masks (a smooth random
+    field through a sigmoid, plus N(0, 0.1^2), in [0, 1]), on the CPU; image 0
+    is a two-colour split with its mask on one side."""
+    import torch.nn.functional as F
+
+    hw = RCF_REF_HW
+    gen = torch.Generator().manual_seed(8)
+    imgs = crf_frames(torch, gen, 4, hw, "cpu", block=16)
+    field = F.interpolate(torch.randn(4, 1, 8, 8, generator=gen), size=(hw, hw),
+                          mode="bilinear", align_corners=False)[:, 0]
+    masks = torch.sigmoid(3.0 * field) + 0.1 * torch.randn(4, hw, hw, generator=gen)
+    imgs[0, :, : hw // 2] = torch.tensor([1.5, -1.0, -1.0])
+    imgs[0, :, hw // 2:] = torch.tensor([-1.0, -1.0, 1.5])
+    masks[0] = torch.where(torch.arange(hw) < hw // 2, 0.9, 0.05)
+    return imgs, masks.clamp(0.0, 1.0)
+
+
+def crf_ref_readings(torch, dev: str, recipe: str) -> dict:
+    """The recipe's CRF (``crf_ref_head``) on ``crf_ref_inputs`` on one device, its
+    masks in the recipe's dtype: q1 and the iterations, on the CPU."""
+    from rcf_tpu_torch.ops.crf import make_crf_fn
+
+    dtype = torch.bfloat16 if RCF_CRF_RECIPES[recipe]["compute_dtype"] == "bfloat16" else None
+    imgs, masks = crf_ref_inputs(torch)
+    q1, iters = make_crf_fn(**crf_ref_head(recipe)).soft(imgs.to(dev), masks.to(dev, dtype))
+    return {"q1": q1.cpu(), "iters": iters.cpu()}
+
+
+def rcf_crf_step_readings(torch, dev: str, recipe: str) -> dict:
+    """One stage-2.1 step of ``recipe``'s full-width model (EMA on, no dropout,
+    masks and CRF grid scaled with the frames) on 2 pairs of RCF_REF_HW^2 frames
+    and flows, in the recipe's dtype: the losses, the CRF target, the gradient
+    of ``decode_head2.conv_seg`` and the EMA's increments, on the CPU."""
+    from rcf_tpu_torch.models import build_model
+    from rcf_tpu_torch.train import create_train_state, make_train_step, maybe_crf_fn
+
+    rec, hw = RCF_CRF_RECIPES[recipe], RCF_REF_HW
+    kw = copy.deepcopy(rec["model_kwargs"])
+    m = kw["mask_size"][0] * hw // H
+    kw["mask_size"] = kw["decode_head"]["mask_size"] = [m, m]
+    kw["decode_head2"]["dropout_ratio"] = kw["decode_head3"]["dropout_ratio"] = 0.0
+    kw["crf_head"] = {"type": "CRFHead", **crf_ref_head(recipe)}
+    dtype = torch.bfloat16 if rec["compute_dtype"] == "bfloat16" else torch.float32
+    model = build_model(kw, device=dev, seed=0, dtype=dtype)
+    state = create_train_state(dict(rec["train"], model_kwargs=kw), model,
+                               steps_per_epoch=STEPS_PER_EPOCH)
+    gen = torch.Generator().manual_seed(9)
+    batch = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+             for k, v in rcf_crf_batch(torch, gen, 2, hw, "cpu").items()}
+    seg = model.decode_head2_ema.conv_seg
+    stats = [t for k, t in model.state_dict().items() if "_ema." in k and "running" in k]
+    w0 = torch.cat([seg.weight.flatten(), seg.bias]).clone()
+    s0 = torch.cat([t.flatten() for t in stats]).clone()
+    crf_fn, out = maybe_crf_fn(model), {}
+
+    def recorded(imgs, masks):
+        target = crf_fn(imgs, masks)
+        out["target"] = target.cpu()
+        return target
+
+    losses = make_train_step(crf_fn=recorded)(state, batch)
+    out.update(losses={k: v.item() for k, v in losses.items()},
+               seg_grad=model.decode_head2.conv_seg.weight.grad.float().cpu(),
+               ema_inc=(torch.cat([seg.weight.flatten(), seg.bias]) - w0).cpu(),
+               ema_stats_inc=(torch.cat([t.flatten() for t in stats]) - s0).cpu())
+    return out
+
+
+def rcf_crf_reference_readings(torch, dev: str) -> dict:
+    """The stage-2.1 readings above on one device, TF32 off, on the CPU."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = {f"crf_{r}": crf_ref_readings(torch, dev, r) for r in RCF_CRF_RECIPES}
+        out["step"] = rcf_crf_step_readings(torch, dev, "rcf")
+        out["step_stv2"] = rcf_crf_step_readings(torch, dev, "rcf_stv2")
+        return out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+def rcf_crf_reference_errors(cpu: dict, cuda: dict) -> dict:
+    """The card's stage-2.1 readings against the CPU's, keyed as ``RCF_CRF_REF_LIMITS``
+    (and each loss's own, ``crf_rel_<key>``, ``crf_stv2_rel_<key>``)."""
+    errs = {}
+    for r in RCF_CRF_RECIPES:
+        c, g = cpu[f"crf_{r}"], cuda[f"crf_{r}"]
+        errs[f"{r}_map_differ"] = float(((c["q1"] > 0.5) != (g["q1"] > 0.5)).float().mean())
+        errs[f"{r}_q1_err"] = max_err(g["q1"], c["q1"])
+        errs[f"{r}_iters_diff"] = int((g["iters"] - c["iters"]).abs().max())
+        errs[f"{r}_iters"] = g["iters"].tolist()
+    c, g = cpu["step"], cuda["step"]
+    rels, rels16 = _loss_rels(c, g), _loss_rels(cpu["step_stv2"], cuda["step_stv2"])
+    errs.update(crf_loss_rel=_worst(rels), crf_seg_grad_rel=rel_max(g["seg_grad"], c["seg_grad"]),
+                crf_ema_rel=_rel_l2(g["ema_inc"], c["ema_inc"]),
+                crf_ema_stats_rel=_rel_l2(g["ema_stats_inc"], c["ema_stats_inc"]),
+                crf_stv2_loss_rel=_worst(rels16),
+                crf_target_differ=int(((g["target"] - c["target"]).abs() > 1e-6).sum()),
+                crf_stv2_target_differ=int(((cuda["step_stv2"]["target"]
+                                             - cpu["step_stv2"]["target"]).abs() > 1e-6).sum()),
+                **{f"crf_rel_{k}": v for k, v in rels.items()},
+                **{f"crf_stv2_rel_{k}": v for k, v in rels16.items()})
+    return errs
+
+
+def rcf_crf_reference_failures(errs: dict) -> list:
+    return [k for k, lim in RCF_CRF_REF_LIMITS.items() if not errs[k] <= lim]
+
+
+def phase_rcf_crf_reference(torch) -> dict:
+    """The stage-2.1 CRF and step on the card against the port's CPU path."""
+    cpu, cuda = rcf_crf_reference_readings(torch, "cpu"), rcf_crf_reference_readings(torch, "cuda")
+    errs = rcf_crf_reference_errors(cpu, cuda)
+    log(f"rcf_crf_reference: losses cuda {cuda['step']['losses']} cpu {cpu['step']['losses']}; "
+        f"STv2 bf16 cuda {cuda['step_stv2']['losses']} cpu {cpu['step_stv2']['losses']}; "
+        + ", ".join(f"{k} {v if isinstance(v, (int, list)) else format(v, '.2e')}"
+                    + (f" (tol {RCF_CRF_REF_LIMITS[k]})" if k in RCF_CRF_REF_LIMITS else "")
+                    for k, v in errs.items()))
+    failed = rcf_crf_reference_failures(errs)
+    if failed:
+        raise RuntimeError(f"stage 2.1 on the card disagrees with the CPU: {failed}")
     return errs
 
 
@@ -1172,6 +1594,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     try:
+        from rcf_tpu_torch.ops import crf as crf_ops
+        from rcf_tpu_torch.ops import crf_kernels as ck
+        from rcf_tpu_torch.ops import cuda_build
         from rcf_tpu_torch.ops import warp_kernels as wk
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
@@ -1183,22 +1608,31 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    # The release library and the test build that counts the overlap-add's
+    # The release libraries and the test build that counts the overlap-add's
     # branches, one nvcc each, side by side.
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         count_so = pool.submit(wk.build_patched, wk.COUNT_TAPS, "count_taps")
+        crf_so = pool.submit(ck.build)
         so = wk.build()
         count_lib = wk.load_library(count_so.result())
+        crf_so = crf_so.result()
     phases["build"] = time.perf_counter() - t0
-    log(f"build: {phases['build']:.1f} s -> {so}")
+    log(f"build: {phases['build']:.1f} s -> {so}, {crf_so}")
     for r in wk.ptxas_report(so):
         log(f"  ptxas: {r['kernel']} {r['dtype']} C={r['c']}: {r.get('registers')} registers, "
             f"spill {r.get('spill_stores')}/{r.get('spill_loads')} bytes (stores/loads), "
             f"{r.get('smem')} bytes shared memory")
+    for r in cuda_build.ptxas_entries(crf_so):
+        log(f"  ptxas: {r['entry']}: {r.get('registers')} registers, spill "
+            f"{r.get('spill_stores')}/{r.get('spill_loads')} bytes, {r.get('smem')} bytes shared")
 
     t0 = time.perf_counter()
     errs = phase_kernels(torch, wk, count_lib)
     phases["kernels"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    errs["crf_filter"] = phase_crf_kernel(torch, ck, crf_ops)["davis"]
+    phases["crf_kernel"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     _, step_ms = phase_step(torch, wk, torch.float32)
@@ -1221,13 +1655,16 @@ def main() -> int:
     phases["reference"] = time.perf_counter() - t0
 
     rcf = {}
-    for recipe, phase in (("rcf", "rcf_step"), ("rcf_stv2", "rcf_step_bf16")):
+    for recipe, phase, crf in (("rcf", "rcf_step", False), ("rcf_stv2", "rcf_step_bf16", False),
+                               ("rcf", "rcf_step_crf", True),
+                               ("rcf_stv2", "rcf_step_crf_bf16", True)):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        rcf[phase] = phase_rcf_step(torch, wk, recipe)
+        rcf[phase] = phase_rcf_step(torch, wk, recipe, crf=crf)
         phases[phase] = time.perf_counter() - t0
-        log(f"{phase} ({recipe}, {RCF_RECIPES[recipe]['compute_dtype']}, mean of steps 2-{STEPS}, "
-            f"batch {B}x2, 384^2 frames and flows): {rcf[phase]['step_ms']:.1f} ms, peak "
+        log(f"{phase} ({recipe} stage {'2.1' if crf else '1'}, "
+            f"{RCF_RECIPES[recipe]['compute_dtype']}, mean of steps 2-{STEPS}, batch {B}x2, "
+            f"384^2 frames and flows): {rcf[phase]['step_ms']:.1f} ms, peak "
             f"{rcf[phase]['peak_gib']:.2f} GiB")
     torch.cuda.empty_cache()
 
@@ -1236,19 +1673,30 @@ def main() -> int:
     phases["rcf_reference"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    crf_errs = phase_rcf_crf_reference(torch)
+    phases["rcf_crf_reference"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
     rows = phase_timing(torch, wk, counts, errs)
+    crf_launches = {p: rcf[p]["launches"]["crf_filter"] for p in ("rcf_step_crf",
+                                                                 "rcf_step_crf_bf16")}
+    rows.append(crf_timing(torch, ck, crf_ops, crf_launches, errs["crf_filter"]))
     phases["timing"] = time.perf_counter() - t0
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     phases["total"] = time.perf_counter() - t_all
+    stage2_1 = {p: {k: rcf[p][k] for k in ("step_ms", "peak_gib", "iterations_per_step",
+                                           "host_syncs_per_step", "crf_filter_per_step")}
+                for p in ("rcf_step_crf", "rcf_step_crf_bf16")}
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"step_ms": step_ms, "step_ms_bf16": step_ms_bf16,
                       "rcf_step_ms": rcf["rcf_step"]["step_ms"],
                       "rcf_step_ms_bf16": rcf["rcf_step_bf16"]["step_ms"],
                       "rcf_peak_gib": rcf["rcf_step"]["peak_gib"],
                       "rcf_peak_gib_bf16": rcf["rcf_step_bf16"]["peak_gib"],
-                      "rcf_reference": rcf_errs, "phases_s": phases}), flush=True)
+                      "stage2_1": stage2_1, "rcf_reference": rcf_errs,
+                      "rcf_crf_reference": crf_errs, "phases_s": phases}), flush=True)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: no output",
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

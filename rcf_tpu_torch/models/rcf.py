@@ -21,7 +21,13 @@ by their config weights.
   parameters stay f32, the probabilities and the bf16 losses keep the
   dtypes JAX gives them.
 
-Stage 2.1's CRF loss (``w_crf > 0``) is not ported: ``build_model`` raises.
+* Stage 2.1's CRF loss (``w_crf > 0``): ``forward`` takes the target masks
+  ``crf_target_masks`` [B, I, h, w] and adds ``loss_crf``, the pseudo-label
+  loss of the object channel against them (``crf_pos_weight``,
+  ``crf_neg_weight``, ``crf_mask_pos_th``). The train step makes the target
+  (``train/step.py``: the EMA copies' masks refined by ``ops/crf.py``;
+  ``crf_use_ema`` false raises there, as in JAX); ``crf_head_kwargs`` (the
+  config's ``crf_head``) are the CRF's settings.
 """
 
 from __future__ import annotations
@@ -84,8 +90,9 @@ def build_model(model_kwargs: dict, device: str | torch.device = "cuda", seed: i
     """
     dev = resolve_device(device)
     kwargs = dict(model_kwargs)
-    if float(kwargs.get("w_crf", 0.0)) > 0:
-        raise NotImplementedError("stage 2.1's CRF loss (w_crf > 0) is not ported yet")
+    crf_cfg = kwargs.pop("crf_head", None)
+    if crf_cfg:
+        kwargs["crf_head_kwargs"] = {k: v for k, v in dict(crf_cfg).items() if k != "type"}
     backbone_cfg = dict(kwargs.pop("backbone2"))
     create_ema = bool(backbone_cfg.get("create_ema", False))
     heads = {k: _strip(kwargs.pop(k)) for k in ("decode_head", "decode_head2", "decode_head3")}
@@ -112,10 +119,12 @@ class RCFModel(nn.Module):
                  t_sharpen: float = 0.25, w_entropy: float = 0.0, w_compactness: float = 0.0,
                  compact_channel: int = -1, w_pl: float = 0.0, pl_pos_weight: float = 1.0,
                  pl_neg_weight: float = 1.0, pl_mask_pos_th: float = 0.35,
-                 ema_m: float = 0.999, separate_residual: bool = False,
-                 allow_mask_resize: bool = False, object_aware_sharpening: bool = False,
-                 freeze_backbone: bool = False, create_ema: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 w_crf: float = 0.0, crf_pos_weight: float = 1.0, crf_neg_weight: float = 1.0,
+                 crf_mask_pos_th: float = -1.0, crf_use_ema: bool = False,
+                 crf_head_kwargs: dict | None = None, ema_m: float = 0.999,
+                 separate_residual: bool = False, allow_mask_resize: bool = False,
+                 object_aware_sharpening: bool = False, freeze_backbone: bool = False,
+                 create_ema: bool = False, dtype: torch.dtype = torch.float32):
         # freeze_backbone acts through the optimizer (train/state.py), as in JAX.
         super().__init__()
         self.mask_layer = mask_layer
@@ -126,6 +135,9 @@ class RCFModel(nn.Module):
         self.compact_channel = compact_channel
         self.w_pl, self.pl_pos_weight, self.pl_neg_weight = w_pl, pl_pos_weight, pl_neg_weight
         self.pl_mask_pos_th = pl_mask_pos_th
+        self.w_crf, self.crf_pos_weight, self.crf_neg_weight = w_crf, crf_pos_weight, crf_neg_weight
+        self.crf_mask_pos_th, self.crf_use_ema = crf_mask_pos_th, crf_use_ema
+        self.crf_head_kwargs = crf_head_kwargs
         self.ema_m = ema_m
         self.separate_residual = separate_residual
         self.allow_mask_resize = allow_mask_resize
@@ -200,10 +212,13 @@ class RCFModel(nn.Module):
 
     # -- training forward -------------------------------------------------
     def forward(self, imgs: torch.Tensor, gt_fw_flows: torch.Tensor, gt_bw_flows: torch.Tensor,
-                pl_masks: torch.Tensor | None = None, object_channel: int | torch.Tensor = 0,
-                object_channel_set: bool = False, generator: torch.Generator | None = None):
+                pl_masks: torch.Tensor | None = None,
+                crf_target_masks: torch.Tensor | None = None,
+                object_channel: int | torch.Tensor = 0, object_channel_set: bool = False,
+                generator: torch.Generator | None = None):
         """imgs [B, I, H, W, 3] (normalized, or uint8); gt flows [B, I-1, H0, W0, 2];
-        pl_masks [B, I, Hp, Wp]. Returns (losses, probs [B, I, h, w, C]).
+        pl_masks [B, I, Hp, Wp]; crf_target_masks [B, I, h, w] (stage 2.1's
+        target, no gradient). Returns (losses, probs [B, I, h, w, C]).
 
         ``generator`` drives the heads' channel dropout.
         """
@@ -246,6 +261,12 @@ class RCFModel(nn.Module):
                                                   self.pl_pos_weight, self.pl_neg_weight,
                                                   self.pl_mask_pos_th)
             loss = loss + losses["loss_pl"] * self.w_pl
+
+        if self.w_crf > 0 and crf_target_masks is not None:
+            losses["loss_crf"] = pseudo_label_loss(take_channel(probs, object_channel),
+                                                   crf_target_masks, self.crf_pos_weight,
+                                                   self.crf_neg_weight, self.crf_mask_pos_th)
+            loss = loss + losses["loss_crf"] * self.w_crf
 
         losses["loss"] = loss
         return losses, probs

@@ -30,29 +30,24 @@ Every kernel offsets inside one [H, W, C] plane in 32 bits and puts the
 batch in the launch grid's z: each wrapper raises, on every device, for a
 plane of more than 2^31 - 1 elements or a shape the grid cannot hold.
 
-Build: ``nvcc`` compiles ``csrc/warp.cu`` for ``sm_90a`` into a shared
-library with a plain C interface, under ``rcf_tpu_torch/build/``, named by
-a hash of the sources and flags, at the first launch (or ``build()``).
-No PyTorch headers, no ninja: a few seconds.
+Build: ``cuda_build`` compiles ``csrc/warp.cu`` for ``sm_90a`` into a
+shared library with a plain C interface, under ``rcf_tpu_torch/build/``,
+named by a hash of the sources and flags, at the first launch (or
+``build()``). No PyTorch headers, no ninja: a few seconds.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import re
-import shutil
-import subprocess
 
 import torch
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(_PKG_DIR, "build")
+from . import cuda_build
+from .cuda_build import CSRC_DIR
+
 SOURCES = ("warp.cu",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_STEM = "librcf_warp"
 
 LAUNCHES = {"warp_fwd": 0, "warp_bwd": 0, "warp_bwd_dimg": 0, "splat": 0}
 
@@ -64,46 +59,14 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    cands = [shutil.which("nvcc")]
-    for env in ("CUDA_HOME", "CUDA_PATH"):
-        if os.environ.get(env):
-            cands.append(os.path.join(os.environ[env], "bin", "nvcc"))
-    cands.append("/usr/local/cuda/bin/nvcc")
-    for c in cands:
-        if c and os.path.isfile(c):
-            return c
-    raise RuntimeError("nvcc not found (looked on PATH, $CUDA_HOME and /usr/local/cuda)")
-
-
 def library_path(csrc_dir: str = CSRC_DIR) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        with open(os.path.join(csrc_dir, name), "rb") as f:
-            h.update(f.read())
-    return os.path.join(BUILD_DIR, f"librcf_warp_{h.hexdigest()[:16]}.so")
+    return cuda_build.library_path(_STEM, SOURCES, csrc_dir)
 
 
 def build(csrc_dir: str = CSRC_DIR) -> str:
-    """Compile the kernels if this source hash has not been built; returns the .so path.
-
-    ``csrc_dir`` may name another copy of the sources (it enters the hash
-    through their text). The compiler's report (``-Xptxas -v``: registers,
-    spills) is kept beside the library as ``<name>.log``.
-    """
-    so = library_path(csrc_dir)
-    if os.path.isfile(so):
-        return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(os.path.join(csrc_dir, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    with open(so[:-3] + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, so)
-    return so
+    """Compile warp.cu if this source hash has not been built; returns the .so path
+    (``cuda_build.build``; ``csrc_dir`` may name another copy of the sources)."""
+    return cuda_build.build(_STEM, SOURCES, csrc_dir)
 
 
 # The test build's change to warp.cu: count the taps of each overlap-add branch.
@@ -111,47 +74,21 @@ COUNT_TAPS = (("constexpr bool kCountTaps = false;", "constexpr bool kCountTaps 
 
 
 def build_patched(replacements, tag: str) -> str:
-    """Build a changed copy of the sources: each (old, new) pair replaces text that
-    occurs exactly once. The copy lives in ``build/<tag>/``; returns the .so path."""
-    src_dir = os.path.join(BUILD_DIR, tag)
-    os.makedirs(src_dir, exist_ok=True)
-    texts = {}
-    for name in SOURCES:
-        with open(os.path.join(CSRC_DIR, name)) as f:
-            texts[name] = f.read()
-    for old, new in replacements:
-        sites = [n for n, t in texts.items() for _ in range(t.count(old))]
-        if len(sites) != 1:
-            raise ValueError(f"{old!r} does not occur exactly once in {SOURCES}")
-        texts[sites[0]] = texts[sites[0]].replace(old, new)
-    for name, text in texts.items():
-        with open(os.path.join(src_dir, name), "w") as f:
-            f.write(text)
-    return build(csrc_dir=src_dir)
+    """Build a changed copy of warp.cu (``cuda_build.build_patched``) in ``build/<tag>/``."""
+    return cuda_build.build_patched(_STEM, SOURCES, replacements, tag)
 
 
 def ptxas_report(so: str) -> list[dict]:
     """Registers, spill bytes and static shared memory of each kernel instance,
-    from ``build()``'s log."""
-    rows, cur = [], None
-    with open(so[:-3] + ".log") as f:
-        for line in f:
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                name = m.group(1)
-                kernel = re.search(r"(warp_fwd|warp_bwd_dimg|warp_bwd|splat)_kernel", name)
-                kernel = kernel.group(1) if kernel else name
-                c = re.search(r"Li(\d+)E", name)
-                cur = {"kernel": kernel, "dtype": "bf16" if "bfloat16" in name else "f32",
-                       "c": int(c.group(1)) if c else None}
-                rows.append(cur)
-            elif cur is not None and (m := re.search(r"(\d+) bytes spill stores, "
-                                                      r"(\d+) bytes spill loads", line)):
-                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
-            elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
-                cur["registers"] = int(m.group(1))
-                smem = re.search(r"(\d+) bytes smem", line)
-                cur["smem"] = int(smem.group(1)) if smem else 0
+    from ``build()``'s log, by kernel, image dtype and compiled channel count."""
+    rows = []
+    for r in cuda_build.ptxas_entries(so):
+        name = r.pop("entry")
+        kernel = re.search(r"(warp_fwd|warp_bwd_dimg|warp_bwd|splat)_kernel", name)
+        c = re.search(r"Li(\d+)E", name)
+        rows.append({"kernel": kernel.group(1) if kernel else name,
+                     "dtype": "bf16" if "bfloat16" in name else "f32",
+                     "c": int(c.group(1)) if c else None, **r})
     return rows
 
 
@@ -197,25 +134,8 @@ def tap_counts(lib: ctypes.CDLL, reset: bool = True) -> tuple[int, int]:
 
 
 def _launch(name: str, fn, dev: torch.device, *args) -> None:
-    """Call the C entry point ``fn`` on ``dev``'s current stream, with ``dev``
-    the current device, and count the launch. The device guard and the raw
-    stream handle cost the host about a tenth of ``torch.cuda.device`` and
-    ``torch.cuda.current_stream`` (PERF.md): a wrapper's host time per call
-    then stays under the warps' device time at the step's level 0."""
-    with torch.cuda._DeviceGuard(dev.index):
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
-    LAUNCHES[name] += 1
+    cuda_build.launch(LAUNCHES, name, fn, dev, *args)
 
-
-def _check_device(name: str, *ts: torch.Tensor) -> str:
-    dev = ts[0].device
-    if any(t.device != dev for t in ts):
-        raise ValueError(f"{name}: tensors on different devices")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {dev}")
-    return dev.type
 
 
 def _check_warp(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor) -> None:
@@ -338,7 +258,7 @@ def warp_fwd(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor) -> torch.Ten
     """Bilinear sample of img [B,H,W,C] at absolute cx, cy [B,H,W] -> [B,H,W,C]."""
     _check_warp(img, cx, cy)
     _check_grid("warp_fwd", img)
-    if _check_device("warp_fwd", img, cx, cy) == "cpu":
+    if cuda_build.check_device("warp_fwd", img, cx, cy) == "cpu":
         return warp_fwd_plain(img, cx, cy)
     img, cx, cy = img.contiguous(), cx.contiguous(), cy.contiguous()
     out = torch.empty_like(img)
@@ -358,7 +278,7 @@ def warp_bwd(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
     if g.shape != img.shape:
         raise ValueError(f"g must be {tuple(img.shape)}, got {tuple(g.shape)}")
     g = g.to(img.dtype)
-    if _check_device("warp_bwd", img, cx, cy, g) == "cpu":
+    if cuda_build.check_device("warp_bwd", img, cx, cy, g) == "cpu":
         return warp_bwd_plain(img, cx, cy, g)
     img, cx, cy, g = img.contiguous(), cx.contiguous(), cy.contiguous(), g.contiguous()
     dcx = torch.empty_like(cx)
@@ -379,7 +299,7 @@ def warp_bwd_dimg(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
     if g.shape != img.shape:
         raise ValueError(f"g must be {tuple(img.shape)}, got {tuple(g.shape)}")
     g = g.to(img.dtype)
-    if _check_device("warp_bwd_dimg", img, cx, cy, g) == "cpu":
+    if cuda_build.check_device("warp_bwd_dimg", img, cx, cy, g) == "cpu":
         return warp_bwd_dimg_plain(img, cx, cy, g)
     img, cx, cy, g = img.contiguous(), cx.contiguous(), cy.contiguous(), g.contiguous()
     # The kernel overlap-adds into dimg with f32 atomics: it must start at zero.
@@ -402,7 +322,7 @@ def splat(tx: torch.Tensor, ty: torch.Tensor, h: int, w: int) -> torch.Tensor:
         raise ValueError("tx/ty must be float32")
     b, sh, sw = tx.shape
     _check_launch("splat", b, sh, max(sh * sw, h * w), SPLAT_TILE_ROWS)
-    if _check_device("splat", tx, ty) == "cpu":
+    if cuda_build.check_device("splat", tx, ty) == "cpu":
         return splat_plain(tx, ty, h, w)
     tx, ty = tx.contiguous(), ty.contiguous()
     # The kernel overlap-adds into the density: it must start at zero.

@@ -8,7 +8,8 @@ masks), and one that reaches the remaining branches (mask resize,
 object-aware sharpening, the pseudo-label loss, compactness on a device
 object channel, the joint residual, the outlier-robust loss). Then the
 bf16 forward, two train steps with the EMA, the eval step from the main
-and the EMA weights, and the full-width build of the three stage-1 YAMLs.
+and the EMA weights, and the full-width build of the three stage-1 YAMLs
+(the stage-2.1 ones: ``test_torch_rcf_stage2_1.py``).
 Weights are drawn with numpy in JAX's shapes and converted; dropout is 0.
 """
 
@@ -349,12 +350,6 @@ def test_eval_step_matches_jax(use_ema):
     probs = make_eval_step(use_ema=use_ema)(state, to_torch(imgs))
     assert not model.training and model.decode_head3.training
     assert_close(probs.numpy(), np.asarray(ref), REL_EVAL)
-
-
-def test_build_model_raises_on_stage_2_1():
-    kw = dict(tiny_kwargs(), w_crf=10.0)
-    with pytest.raises(NotImplementedError):
-        build_model(kw, device="cpu")
 
 
 def _jax_param_counts(kw) -> tuple[int, int, dict]:

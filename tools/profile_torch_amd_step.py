@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where the port's AMD or RCF stage-1 training step spends its time on one NVIDIA GPU.
+"""Where the port's AMD or RCF training step spends its time on one NVIDIA GPU.
 
-    python3 tools/profile_torch_amd_step.py [--model amd|rcf_stage1]
+    python3 tools/profile_torch_amd_step.py [--model amd|rcf_stage1|rcf_stage2_1]
         [--dtype float32|bfloat16] [--steps 2] [--top 25] [--fused-ab ROUNDS]
+        [--sync-every K]
 
 ``--model amd`` runs the AMD recipe as ``chip_smoke.py`` sets it up
 (``configs/amd/amd.yaml``: ResNet-50 OS8, FCN head, PWC-Lite, unFlow loss,
@@ -13,7 +14,15 @@ Adam) at batch 8 pairs of 384^2 frames and flow_size 384x640.
 recipe (``configs/rcf_stv2/rcf_stage1.yaml``) with ``--dtype bfloat16``, at
 batch 8 pairs of 384^2 frames and ground-truth flows. Both from seed 0, in
 the compute dtype ``--dtype`` (f32 convolutions run in TF32, cuDNN's
-default). It warms up 3 steps, then:
+default). ``--model rcf_stage2_1`` runs the stage-2.1 step as
+``chip_smoke.py``'s ``rcf_step_crf`` phases do (the CRF target from the
+EMA each step; ``configs/rcf/rcf_stage2.1.yaml`` with ``--dtype float32``,
+``configs/rcf_stv2/rcf_stage2.1.yaml`` with ``--dtype bfloat16``; frames
+with flat colour regions, object channel 0 set); it also prints the mean
+field's iterations and host syncs per step, and ``crf_filter``'s device
+time and share; ``--sync-every K`` reads the stable exit's "all done" flag
+every K iterations in place of ``ops/crf.py``'s ``SYNC_EVERY``. It warms
+up 3 steps, then:
 
 * runs one step with ``torch.cuda.set_sync_debug_mode("warn")`` and prints
   each operation that synchronized the host with the card (its Python
@@ -24,7 +33,7 @@ Prints the step time (host clock, synchronized), the device busy share
 (sum of kernel times over the traced wall time; kernels run on one stream,
 so they do not overlap), the host-to-device copies and stream or device
 synchronizations per traced step, the device time by group (convolutions
-and matmuls, the port's CUDA kernels, the rest), and the ``--top`` kernels
+and matmuls, the port's warp kernels, ``crf_filter``, the rest), and the ``--top`` kernels
 by device time, then one JSON line with the same numbers. Needs a CUDA
 device; imports no JAX.
 
@@ -49,6 +58,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 OURS = ("warp_fwd_kernel", "warp_bwd_kernel", "warp_bwd_dimg_kernel", "splat_kernel")
+CRF = "crf_filter_kernel"
 # Convolution and matmul kernels by name ("conv" but not "convert"; nvjet is
 # cuBLAS's Hopper matmul).
 GEMM = re.compile(r"gemm|xmma|cutlass|nvjet|wgrad|dgrad|fprop|winograd|conv(?!ert)")
@@ -63,6 +73,8 @@ def _device_us(evt) -> float:
 
 def _group(kernel_name: str) -> str:
     name = kernel_name.lower()
+    if CRF in name:
+        return "crf_filter"
     if any(k in name for k in OURS):
         return "port_kernels"
     return "gemm_conv" if GEMM.search(name) else "other"
@@ -82,10 +94,19 @@ def _setup(torch, model_name: str, dtype):
         batch = {"imgs": torch.randn(cs.B, 2, cs.H, cs.H, 3, generator=gen, device="cuda")}
     else:
         from rcf_tpu_torch.models import build_model
+        from rcf_tpu_torch.train import maybe_crf_fn
 
-        cfg = cs.rcf_train_cfg("rcf" if dtype == torch.float32 else "rcf_stv2")
+        recipe = "rcf" if dtype == torch.float32 else "rcf_stv2"
+        if model_name == "rcf_stage2_1":
+            rec = cs.RCF_CRF_RECIPES[recipe]
+            cfg = dict(rec["train"], model_kwargs=rec["model_kwargs"])
+            batch = cs.rcf_crf_batch(torch, gen, cs.B, cs.H, "cuda")
+        else:
+            cfg = cs.rcf_train_cfg(recipe)
+            batch = cs.rcf_batch(torch, gen, cs.B, cs.H, "cuda")
         model = build_model(cfg["model_kwargs"], device="cuda", seed=0, dtype=dtype)
-        batch = cs.rcf_batch(torch, gen, cs.B, cs.H, "cuda")
+        state = create_train_state(cfg, model, steps_per_epoch=cs.STEPS_PER_EPOCH)
+        return state, make_train_step(crf_fn=maybe_crf_fn(model)), batch, gen
     state = create_train_state(cfg, model, steps_per_epoch=cs.STEPS_PER_EPOCH)
     return state, make_train_step(), batch, gen
 
@@ -135,11 +156,12 @@ def _sync_sources(torch, step, state, batch, gen) -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=("amd", "rcf_stage1"), default="amd")
+    ap.add_argument("--model", choices=("amd", "rcf_stage1", "rcf_stage2_1"), default="amd")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--fused-ab", type=int, default=0, metavar="ROUNDS")
+    ap.add_argument("--sync-every", type=int, default=0, metavar="K")
     args = ap.parse_args()
     if args.fused_ab and (args.model, args.dtype) != ("rcf_stage1", "float32"):
         ap.error("--fused-ab times the DAVIS recipe: --model rcf_stage1 --dtype float32")
@@ -151,6 +173,10 @@ def main() -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 2
     dtype = getattr(torch, args.dtype)
+    from rcf_tpu_torch.ops import crf as crf_ops
+
+    if args.sync_every:
+        crf_ops.SYNC_EVERY = args.sync_every
     state, step, batch, gen = _setup(torch, args.model, dtype)
     for _ in range(3):
         step(state, batch, generator=gen)
@@ -167,11 +193,13 @@ def main() -> int:
         return 0
     syncs = _sync_sources(torch, step, state, batch, gen)
 
+    crf_ops.reset_stats()
     t0 = time.perf_counter()
     for _ in range(args.steps):
         step(state, batch, generator=gen)
     torch.cuda.synchronize()
     untraced_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    mean_field = {k: v / args.steps for k, v in crf_ops.STATS.items()}
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -188,7 +216,7 @@ def main() -> int:
                if _device_us(e) > 0 and str(getattr(e, "device_type", "")).endswith("CUDA")
                and not getattr(e, "is_user_annotation", False)]
     total_ms = sum(_device_us(e) for e in kernels) / 1e3
-    groups = {"gemm_conv": 0.0, "port_kernels": 0.0, "other": 0.0}
+    groups = {"gemm_conv": 0.0, "port_kernels": 0.0, "crf_filter": 0.0, "other": 0.0}
     for e in kernels:
         groups[_group(e.key)] += _device_us(e) / 1e3 / args.steps
     top = sorted(kernels, key=_device_us, reverse=True)[: args.top]
@@ -226,6 +254,12 @@ def main() -> int:
     for c in sync_callers:
         print(f"  traced sync: {c}")
     print("per step by group (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in groups.items()))
+    if args.model == "rcf_stage2_1":
+        print(f"mean field per untraced step: {mean_field['iterations']:g} iterations, "
+              f"{mean_field['host_syncs']:g} host syncs (flag read every "
+              f"{crf_ops.SYNC_EVERY}); crf_filter "
+              f"{groups['crf_filter']:.2f} ms, {groups['crf_filter'] * args.steps / total_ms:.3f} "
+              f"of the device time")
     for e in top:
         print(f"{_device_us(e) / 1e3 / args.steps:9.3f} ms/step {e.count // args.steps:6d} "
               f"calls/step  {_group(e.key):12s} {e.key[:100]}")
@@ -234,7 +268,9 @@ def main() -> int:
         "step_ms_untraced": untraced_ms, "step_ms": step_ms, "h2d_copies_per_step": h2d,
         "syncs_per_step": sync_calls, "sync_sources": syncs, "sync_callers": sync_callers,
         "device_ms_per_step": total_ms / args.steps, "busy_share": total_ms / wall_ms,
-        "groups_ms_per_step": groups,
+        "groups_ms_per_step": groups, "mean_field_per_step": mean_field,
+        "sync_every": crf_ops.SYNC_EVERY,
+        "crf_filter_share": groups["crf_filter"] * args.steps / total_ms,
         "top": [{"name": e.key, "ms_per_step": _device_us(e) / 1e3 / args.steps,
                  "calls_per_step": e.count // args.steps} for e in top],
     }))

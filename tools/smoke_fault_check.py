@@ -62,11 +62,25 @@ the card's side:
   probabilities f32), the fault a bf16 check that the convolutions' noise
   swamps would miss.
 
+Then the stage-2.1 card-vs-CPU check (``chip_smoke.rcf_crf_reference_*``:
+the CRF of each recipe on identical inputs, the DAVIS stage-2.1 step's
+losses, gradient, EMA and EMA statistics, the SegTrackv2 step's losses),
+sound and with one fault at a time planted at run time on the card's side:
+
+* ``ema_train_mode``: the EMA copies left in training mode for the target
+  (batch statistics, their running statistics moved);
+* ``sxy_unscaled``: the spatial widths not scaled by the grid ratio;
+* ``batch_wide_freeze``: with ``stable_exit``, every image run to the
+  batch's last exit instead of frozen at its own;
+* ``tf32_logits``: the filter's logits from a TF32 matrix product.
+
 Last, one JSON line. Needs a CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -211,6 +225,71 @@ def rcf_faults(torch, cs) -> dict:
     return out
 
 
+def rcf_crf_faults(torch, cs) -> dict:
+    """chip_smoke's stage-2.1 readings, sound and with each planted fault."""
+    from rcf_tpu_torch.ops import crf as crf_ops
+    from rcf_tpu_torch.train import step as step_mod
+
+    eval_mode, xy_features = step_mod._eval_mode, crf_ops.xy_features
+    mean_field, crf_filter = crf_ops.mean_field, crf_ops.crf_filter
+
+    def ema_train_mode(*modules):
+        on_card = next(modules[0].parameters()).is_cuda
+        return contextlib.nullcontext() if on_card else eval_mode(*modules)
+
+    def sxy_unscaled(h, w, sxy, xy_scale=(1.0, 1.0), device="cpu"):
+        on_card = torch.device(device).type == "cuda"
+        return xy_features(h, w, sxy, (1.0, 1.0) if on_card else xy_scale, device)
+
+    def batch_wide_freeze(rgb, masks, params, xy_scale=(1.0, 1.0), chunk=1024):
+        q1, iters = mean_field(rgb, masks, params, xy_scale, chunk)
+        if not (masks.is_cuda and params.stable_exit):
+            return q1, iters
+        n = int(iters.max())
+        fixed = dataclasses.replace(params, stable_exit=False, refine_iters=n)
+        return mean_field(rgb, masks, fixed, xy_scale, chunk)[0], torch.full_like(iters, n)
+
+    def tf32_logits(feat, values, chunk=1024):
+        if not feat.is_cuda:
+            return crf_filter(feat, values, chunk)
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            sq = (feat * feat).sum(-1) * 0.5
+            out = []
+            for c in range(0, feat.shape[1], chunk):
+                w = torch.exp(feat[:, c:c + chunk] @ feat.transpose(1, 2) - sq[:, None, :]
+                              - sq[:, c:c + chunk, None])
+                out.append((w * values[:, None, :]).sum(-1) / w.sum(-1))
+            return torch.cat(out, dim=1)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+
+    faults = {"sound": [],
+              "ema_train_mode": [(step_mod, "_eval_mode", ema_train_mode)],
+              "sxy_unscaled": [(crf_ops, "xy_features", sxy_unscaled)],
+              "batch_wide_freeze": [(crf_ops, "mean_field", batch_wide_freeze)],
+              "tf32_logits": [(crf_ops, "crf_filter", tf32_logits)]}
+    cpu = cs.rcf_crf_reference_readings(torch, "cpu")
+    out = {}
+    for case, patches in faults.items():
+        saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+        for obj, name, fn in patches:
+            setattr(obj, name, fn)
+        try:
+            errs = cs.rcf_crf_reference_errors(cpu, cs.rcf_crf_reference_readings(torch, "cuda"))
+        finally:
+            for obj, name, fn in saved:
+                setattr(obj, name, fn)
+        caught = cs.rcf_crf_reference_failures(errs)
+        out[case] = {**errs, "caught_by": caught}
+        print(f"crf {case:17s} " + "  ".join(
+            f"{k} {v if isinstance(v, (int, list)) else format(v, '.3e')}"
+            for k, v in errs.items() if k in cs.RCF_CRF_REF_LIMITS or k.endswith("_iters"))
+            + f"  caught by {caught or 'nothing'}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -320,8 +399,10 @@ def main() -> int:
               + f"  caught by {r['caught_by'] or 'nothing'}", flush=True)
     print(f"stage-1 limits {cs.RCF_REF_LIMITS}", flush=True)
     rcf = rcf_faults(torch, cs)
+    print(f"stage-2.1 limits {cs.RCF_CRF_REF_LIMITS}", flush=True)
+    crf = rcf_crf_faults(torch, cs)
     print(json.dumps({"device": smi, "cases": out, "tail_dropped": tail, **overlap,
-                      "rcf": rcf}))
+                      "rcf": rcf, "rcf_crf": crf}))
     return 0
 
 
