@@ -27,7 +27,8 @@ Phases, each timed:
                 (``crf_kernel``) crf_filter against its plain version with
                 TF32 matmuls on, on the DAVIS grid (16 x 96^2, D=5), i.i.d.
                 features, a ragged N (3 x 97 x 61), D=2 and the SegTrackv2
-                grid (16 x 128^2), each at its limit (``CRF_TOL``);
+                grid (16 x 128^2), each at its limit (``CRF_TOL``), which
+                also holds the kernel's distance to a float64 filter;
 3. step       - three AMD training steps (ResNet-50 OS8 + FCN mask head +
                 PWC-Lite + unFlow loss, Adam) at batch 8 pairs of 384^2
                 frames, flow_size 384x640, random weights from a seed, in f32
@@ -97,7 +98,8 @@ Phases, each timed:
                 in bf16 (C=2) on both flow kinds, each with its bound (the
                 splat's and warp_bwd_dimg's without their buffer's zero fill);
                 crf_filter on the DAVIS and (keys ``*_stv2``) SegTrackv2
-                grids beside its bound (ex2 and FP32 instructions) and
+                grids beside its bound (an ex2 and two FP32 instructions a
+                pair; the ex2 unit binds) and
                 ``scaled_dot_product_attention`` computing the same filter.
 
 Prints a ``{"kernels": [...]}`` line, a line with the AMD, stage-1 and
@@ -1077,25 +1079,33 @@ def phase_rcf_reference(torch) -> dict:
 # from a float64 filter, <= 5.0e-5 from the other (first chip run, an H100
 # 80GB HBM3 at 700 W);
 # the i.i.d. set, whose pixels have few near neighbours, reads up to 1.4e-4
-# from float64 on the CPU.
+# from float64 on the CPU. The kernel's split-TF32 logits of centred
+# features read <= 1.5e-5 from float64 on the structured sets and 3.6e-5 on
+# the i.i.d. one, 1.4e-4 from the plain version there (an H100 80GB HBM3 at
+# 700 W).
+# The same limit holds each set's distance, kernel to a float64 filter.
 CRF_TOL = {"davis": 2e-4, "iid": 1e-3, "ragged": 2e-4, "d2": 2e-4, "stv2": 2e-4}
-# The filter's operations by the card's units: an ex2 per pair on the
-# multi-function unit (16 per SM and clock, against 128 FP32 lanes doing two
-# flops each), and D + 4 FP32 instructions per pair (the dot's FMAs, the two
-# half-norm subtractions, the sums' FMA and add).
+# The filter's least work by the card's units, whatever the route: one ex2 a
+# pair on the multi-function unit (16 per SM and clock, against 128 FP32
+# lanes doing two flops each) and two FP32 instructions a pair for the sums
+# (num's FMA, den's add). The dot can run on the tensor cores, another unit
+# (a K = 8 dot in split TF32, 48 flops a pair at 495 TFLOP/s), under both.
 EX2_PER_S = F32_FLOPS / 16
 FP32_INST_PER_S = F32_FLOPS / 2
 CRF_REPLACES = "rcf_tpu/ops/crf.py:98"  # _normalized_filter: XLA code, not a TPU kernel
 
 
-def crf_bound(b: int, n: int, d: int) -> tuple[float, str]:
+def crf_bound(b: int, n: int, d: int) -> tuple[float, str, str]:
     """The least time of one crf_filter call on b images of n pixels: bytes (the
-    features, values and output once) or operations (the larger of the ex2 and
-    the FP32 instructions of n^2 pairs an image, whatever the data)."""
+    features, values and output once) or operations (n^2 pairs an image,
+    whatever the data: the larger of their ex2 and their two FP32 instructions
+    each), and the unit that binds."""
     pairs = b * n * n
-    t_ops = max(pairs / EX2_PER_S, pairs * (d + 4) / FP32_INST_PER_S) * 1e3
+    t_ex2, t_fp32 = pairs / EX2_PER_S * 1e3, pairs * 2 / FP32_INST_PER_S * 1e3
     t_bytes = b * n * (d + 2) * 4 / HBM_BYTES_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    if t_bytes >= max(t_ex2, t_fp32):
+        return t_bytes, "bytes", "device memory"
+    return max(t_ex2, t_fp32), "operations", "ex2" if t_ex2 >= t_fp32 else "fp32"
 
 
 def crf_features(torch, crf_ops, gen, b: int, h: int, w: int, scale: float):
@@ -1133,30 +1143,49 @@ def crf_filter_f64(torch, feat, values, chunk: int = 512):
     return torch.cat(out, dim=1).float()
 
 
-def phase_crf_kernel(torch, ck, crf_ops) -> dict:
-    """crf_filter against crf_filter_plain on every set of ``crf_filter_sets``,
-    TF32 on; each side's distance to float64 is logged. Returns the errors."""
+def crf_kernel_readings(torch, ck, crf_ops) -> dict:
+    """name -> (kernel to plain, kernel to float64, plain to float64): the max abs
+    errors of crf_filter on every set of ``crf_filter_sets``, TF32 on."""
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
     try:
         gen = torch.Generator(device="cuda").manual_seed(4)
-        errs, failed = {}, []
+        out = {}
         for name, (feat, vals) in crf_filter_sets(torch, crf_ops, gen).items():
-            out = ck.crf_filter(feat, vals)
+            got = ck.crf_filter(feat, vals)
             torch.cuda.synchronize()
             plain = ck.crf_filter_plain(feat, vals)
             exact = crf_filter_f64(torch, feat, vals)
-            errs[name] = max_err(out, plain)
-            log(f"kernel crf_filter {name} {list(feat.shape)}: max_abs_err {errs[name]:.3e} "
-                f"(tol {CRF_TOL[name]}); from float64: kernel {max_err(out, exact):.3e}, plain "
-                f"{max_err(plain, exact):.3e}")
-            if not errs[name] <= CRF_TOL[name]:
-                failed.append(name)
-        if failed:
-            raise RuntimeError(f"crf_filter disagrees with its plain version on {failed}")
-        return errs
+            out[name] = (max_err(got, plain), max_err(got, exact), max_err(plain, exact))
+        return out
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def crf_kernel_failures(readings: dict) -> list:
+    """The sets whose kernel is farther than ``CRF_TOL`` from the plain version
+    or from float64 (the latter marked ``(float64)``)."""
+    failed = []
+    for name, (to_plain, to_f64, _) in readings.items():
+        if not to_plain <= CRF_TOL[name]:
+            failed.append(name)
+        if not to_f64 <= CRF_TOL[name]:
+            failed.append(f"{name} (float64)")
+    return failed
+
+
+def phase_crf_kernel(torch, ck, crf_ops) -> dict:
+    """crf_filter against crf_filter_plain and against a float64 filter on every
+    set of ``crf_filter_sets``, TF32 on, each at the set's ``CRF_TOL``; the plain
+    version's distance to float64 is logged. Returns the errors to the plain."""
+    readings = crf_kernel_readings(torch, ck, crf_ops)
+    for name, (to_plain, to_f64, plain_f64) in readings.items():
+        log(f"kernel crf_filter {name}: max_abs_err {to_plain:.3e} (tol {CRF_TOL[name]}); from "
+            f"float64: kernel {to_f64:.3e} (tol {CRF_TOL[name]}), plain {plain_f64:.3e}")
+    failed = crf_kernel_failures(readings)
+    if failed:
+        raise RuntimeError(f"crf_filter disagrees with its plain version or float64 on {failed}")
+    return {name: r[0] for name, r in readings.items()}
 
 
 def crf_sdpa(torch, feat, values):
@@ -1215,11 +1244,11 @@ def crf_timing(torch, ck, crf_ops, launches: dict, err: float) -> dict:
         res["ms_device"] = graph_ms(torch, [lambda f=f, v=v: ck.crf_filter(f, v) for f, v in sets])
         res["library_ms_device"] = graph_ms(torch, [crf_sdpa(torch, f, v) for f, v in sets])
         del sets
-        res["bound_ms"], res["bound_by"] = crf_bound(16, hw * hw, 5)
+        res["bound_ms"], res["bound_by"], res["bound_unit"] = crf_bound(16, hw * hw, 5)
         res["library_max_abs_err"] = max_err(lib(), ck.crf_filter_plain(feat, vals))
         res["library_kernels"] = traced_kernels(torch, lib)[:3]
         log(f"timing crf_filter 16x{hw}^2 D=5: {res['ms']:.4f} ms, device {res['ms_device']:.4f} "
-            f"ms (bound {res['bound_ms']:.4f} ms by {res['bound_by']}, "
+            f"ms (bound {res['bound_ms']:.4f} ms by {res['bound_by']}, {res['bound_unit']}, "
             f"{res['bound_ms'] / res['ms_device']:.0%} of it); plain {res['plain_ms']:.2f} ms; "
             f"library {res['library_ms']:.4f} ms, device {res['library_ms_device']:.4f} ms, "
             f"max_abs_err {res['library_max_abs_err']:.2e}, kernels {res['library_kernels']}")

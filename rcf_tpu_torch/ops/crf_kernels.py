@@ -9,7 +9,10 @@ exact normalized Gaussian filter of one mean-field iteration:
 the self term included. It replaces XLA code of the JAX package
 (``rcf_tpu/ops/crf.py::_normalized_filter``), not a TPU kernel. The
 hand-written kernel (``csrc/crf.cu``, D = 5 and D = 2) keeps no N x N
-buffer; ``crf_filter_plain`` is the same function as JAX's chunked
+buffer: the logits come from tensor cores in split TF32 (each operand
+centred, then split into two TF32 parts, three products), the weights
+from ``ex2``, the sums in f32; its source note gives the accuracy
+argument. ``crf_filter_plain`` is the same function as JAX's chunked
 attention, batched, which the CPU takes.
 
 The wrapper takes the plain version only for a tensor on the CPU; on a
@@ -31,7 +34,7 @@ SOURCES = ("crf.cu",)
 _STEM = "librcf_crf"
 FEATURE_DIMS = (2, 5)  # the compiled instances: xy features, and xy + rgb
 GRID_Z_LIMIT = 65535  # the batch rides the launch grid's z
-N_LIMIT = 2**31 - 1 - 127  # query blocks of 128 in the grid's x, 32-bit pixel indices
+N_LIMIT = 2**31 - 256  # query blocks and key stages of 256, 32-bit pixel indices
 
 LAUNCHES = {"crf_filter": 0}
 

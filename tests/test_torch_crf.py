@@ -7,11 +7,15 @@ features, the filter's plain version against ``_normalized_filter`` at a
 ragged N, the batched mean field against ``crf_soft_single`` under
 ``vmap`` (q1 before the threshold, the MAP, each image's iterations, with
 ``stable_exit`` on and off), ``make_crf_fn`` on a reduced grid, and the
-dense numpy golden of ``tests/test_crf.py`` (copied here). The kernel
-itself runs only on the card (``cuda`` marker).
+dense numpy golden of ``tests/test_crf.py`` (copied here); a model of the
+kernel's split-TF32 operands against float64 logits. The kernel itself runs
+only on the card (``cuda`` marker).
 """
 
 from __future__ import annotations
+
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -356,6 +360,135 @@ def test_crf_filter_kernel_matches_plain_on_card(cuda, d):
         torch.cuda.synchronize()
         assert ck.LAUNCHES["crf_filter"] == 1
         assert (ours - ck.crf_filter_plain(f, v)).abs().max() <= 1e-4, (b, h, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [5, 2])
+@pytest.mark.parametrize("n", [1, 7, 97 * 61, 96 * 96])
+def test_crf_filter_kernel_matches_plain_at_ragged_sizes(cuda, d, n):
+    """The kernel against its plain version at an N below one query block (1,
+    7), a ragged N (97 x 61) and a full 96^2 image, at the DAVIS scales (the
+    split-TF32 logits: limit 2e-4, ``chip_smoke.CRF_TOL``)."""
+    h, w = {1: (1, 1), 7: (1, 7), 97 * 61: (97, 61), 96 * 96: (96, 96)}[n]
+    feat, vals = _filter_inputs(d, 2, h, w)
+    f, v = torch.from_numpy(feat).to(cuda), torch.from_numpy(vals).to(cuda)
+    ck.reset_launch_counts()
+    ours = ck.crf_filter(f, v)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["crf_filter"] == 1
+    assert (ours - ck.crf_filter_plain(f, v)).abs().max() <= 2e-4
+
+
+# A model of the kernel's operands (csrc/crf.cu): centred on the midpoint of a
+# query block's bounding box, q' = log2(e) [f - c, -|f - c|^2/2, 1, 0...] and
+# k' = [f - c, 1, -|f - c|^2/2, 0...] formed in f32, each split into TF32
+# parts hi = rna(x), lo = rna(x - hi); the logit is hi.hi + hi.lo + lo.hi.
+# The products here are float64, so what it holds is the operands' rounding:
+# the part of the kernel's error that the design chose.
+LOG2E = np.float32(1.4426950408889634)
+# The logit in natural units against the exact one, where the weight is not
+# negligible (l > -20); f32 logits of uncentred features carry ~5e-4.
+SPLIT_LOGIT_ATOL = 2e-3
+
+
+def _kernel_query_block() -> int:
+    """Queries a block of the kernel, from its source: 16 kTiles kWarps."""
+    with open(os.path.join(ck.CSRC_DIR, "crf.cu")) as f:
+        src = f.read()
+    val = {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+           for k in ("kWarps", "kTiles")}
+    return 16 * val["kWarps"] * val["kTiles"]
+
+
+def _tf32(x: np.ndarray) -> np.ndarray:
+    """cvt.rna.tf32.f32: round to 10 mantissa bits, ties away from zero."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    x = np.asarray(x, np.float32)
+    hi = _tf32(x)
+    return hi, _tf32((x - hi).astype(np.float32))
+
+
+def _operands(fq: np.ndarray, fk: np.ndarray, centre: np.ndarray):
+    d = fq.shape[-1]
+    qc, kc = (fq - centre).astype(np.float32), (fk - centre).astype(np.float32)
+    hq = np.float32(0.5) * (qc * qc).sum(-1, dtype=np.float32)
+    hk = np.float32(0.5) * (kc * kc).sum(-1, dtype=np.float32)
+    q = np.zeros(fq.shape[:-1] + (8,), np.float32)
+    k = np.zeros(fk.shape[:-1] + (8,), np.float32)
+    q[:, :d], q[:, d], q[:, d + 1] = LOG2E * qc, -LOG2E * hq, LOG2E
+    k[:, :d], k[:, d], k[:, d + 1] = kc, 1.0, -hk
+    return q, k
+
+
+def _split_logits(fq, fk, centre):
+    """Natural-unit logits from the TF32 parts, products in float64."""
+    (qh, ql), (kh, kl) = (_split(x) for x in _operands(fq, fk, centre))
+    dot = lambda a, b: a.astype(np.float64) @ b.astype(np.float64).T  # noqa: E731
+    return (dot(qh, kh) + dot(qh, kl) + dot(ql, kh)) / float(LOG2E)
+
+
+def _exact_logits(fq, fk):
+    a, b = fq.astype(np.float64), fk.astype(np.float64)
+    return -0.5 * ((a[:, None, :] - b[None]) ** 2).sum(-1)
+
+
+# The recipes' grids: DAVIS 96^2 at sxy 60 / 4, SegTrackv2 128^2 at sxy 60 / 3; srgb 5.
+GRIDS = {"davis": (96, 0.25), "stv2": (128, 1 / 3)}
+
+
+def _grid_features(grid: str) -> np.ndarray:
+    hw, scale = GRIDS[grid]
+    frames = synthetic_frames(1, hw, hw, seed=6)
+    return tcrf.pixel_features(torch.from_numpy(frames), 60.0, 5.0, (scale, scale))[0].numpy()
+
+
+def _block_centre(fq: np.ndarray) -> np.ndarray:
+    return (0.5 * (fq.min(0) + fq.max(0))).astype(np.float32)
+
+
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+def test_split_tf32_parts_rebuild_the_operands(grid):
+    """Each operand of the kernel's dot is hi + lo within one f32 ulp, both parts
+    TF32 (their 13 low mantissa bits 0)."""
+    f = _grid_features(grid)
+    fq = f[:_kernel_query_block()]
+    for x in _operands(fq, f, _block_centre(fq)):
+        hi, lo = _split(x)
+        for part in (hi, lo):
+            assert not (part.view(np.uint32) & np.uint32(0x1FFF)).any()
+        err = np.abs(hi.astype(np.float64) + lo.astype(np.float64) - x.astype(np.float64))
+        assert (err <= np.spacing(np.abs(x))).all()
+
+
+@pytest.mark.parametrize("centred", [True, False], ids=["centred", "uncentred"])
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+def test_split_tf32_logits_match_float64(grid, centred):
+    """The logits rebuilt from the TF32 parts of a query block against all keys
+    lie within SPLIT_LOGIT_ATOL of float64 logits where their weight counts."""
+    f = _grid_features(grid)
+    fq = f[:_kernel_query_block()]
+    centre = _block_centre(fq) if centred else np.zeros(f.shape[1], np.float32)
+    exact = _exact_logits(fq, f)
+    err = np.abs(_split_logits(fq, f, centre) - exact)[exact > -20]
+    assert err.max() <= SPLIT_LOGIT_ATOL
+
+
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+def test_centring_leaves_the_split_logits(grid):
+    """The logit is invariant to a translation: operands centred on the block's
+    midpoint and uncentred ones give the same logits to SPLIT_LOGIT_ATOL, and
+    the self logits (exactly 0) stay within it of 0 (den >= 1 to rounding)."""
+    f = _grid_features(grid)
+    fq = f[:_kernel_query_block()]
+    exact = _exact_logits(fq, f)
+    centred = _split_logits(fq, f, _block_centre(fq))
+    uncentred = _split_logits(fq, f, np.zeros(f.shape[1], np.float32))
+    assert np.abs(centred - uncentred)[exact > -20].max() <= SPLIT_LOGIT_ATOL
+    assert np.abs(np.diag(centred[:, :len(fq)])).max() <= SPLIT_LOGIT_ATOL
 
 
 def _measure():

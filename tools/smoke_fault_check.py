@@ -74,6 +74,17 @@ sound and with one fault at a time planted at run time on the card's side:
   batch's last exit instead of frozen at its own;
 * ``tf32_logits``: the filter's logits from a TF32 matrix product.
 
+Last, two faults built into ``crf.cu`` (``crf_kernels.build_patched``, in
+the gitignored ``rcf_tpu_torch/build/``), each read by chip_smoke's
+``crf_kernel`` comparisons (``crf_kernel_readings``: kernel against the
+plain version and against float64 on its five sets, ``CRF_TOL``) and by the
+stage-2.1 card-vs-CPU check:
+
+* ``lo_products_dropped``: the dot without its hi.lo and lo.hi products, a
+  single TF32 dot;
+* ``key_tail_dropped``: the keys of the last, partial key stage treated as
+  padding (weight 0), which an N that is a multiple of the stage never shows.
+
 Last, one JSON line. Needs a CUDA device; imports no JAX.
 """
 
@@ -225,8 +236,46 @@ def rcf_faults(torch, cs) -> dict:
     return out
 
 
-def rcf_crf_faults(torch, cs) -> dict:
-    """chip_smoke's stage-2.1 readings, sound and with each planted fault."""
+# The split dot's two correction products, and the test that marks a stage's
+# key as real, in crf.cu.
+CRF_KERNEL_FAULTS = {
+    "lo_products_dropped": [
+        ("#pragma unroll\n    for (int m = 0; m < kTiles; ++m) mma_tf32(acc[m], a_lo[m], bh0, bh1);\n", ""),
+        ("#pragma unroll\n    for (int m = 0; m < kTiles; ++m) mma_tf32(acc[m], a_hi[m], bl0, bl1);\n", "")],
+    "key_tail_dropped": [("    const bool real = j0 + r < n;",
+                          "    const bool real = j0 + r < n / kKeys * kKeys;")],
+}
+
+
+def crf_kernel_faults(torch, cs, cpu: dict) -> dict:
+    """chip_smoke's crf_kernel comparisons and stage-2.1 check (``cpu``: its CPU
+    readings) with each of CRF_KERNEL_FAULTS built into crf.cu."""
+    from rcf_tpu_torch.ops import crf as crf_ops
+    from rcf_tpu_torch.ops import crf_kernels as ck
+
+    out = {}
+    for name, reps in CRF_KERNEL_FAULTS.items():
+        faulty = ck.load_library(ck.build_patched(reps, f"fault_{name}"))
+        sound, ck._lib = ck._load(), faulty
+        try:
+            kernel = cs.crf_kernel_readings(torch, ck, crf_ops)
+            errs = cs.rcf_crf_reference_errors(cpu, cs.rcf_crf_reference_readings(torch, "cuda"))
+        finally:
+            ck._lib = sound
+        caught = cs.crf_kernel_failures(kernel) + cs.rcf_crf_reference_failures(errs)
+        out[name] = {"crf_kernel": kernel, "rcf_crf": errs, "caught_by": caught}
+        print(f"{name:19s} crf_kernel (to plain, to float64): "
+              + ", ".join(f"{k} {a:.2e} {b:.2e}" for k, (a, b, _) in kernel.items())
+              + "; stage 2.1: " + "  ".join(
+                  f"{k} {v if isinstance(v, (int, list)) else format(v, '.3e')}"
+                  for k, v in errs.items() if k in cs.RCF_CRF_REF_LIMITS)
+              + f"  caught by {caught or 'nothing'}", flush=True)
+    return out
+
+
+def rcf_crf_faults(torch, cs, cpu: dict) -> dict:
+    """chip_smoke's stage-2.1 readings (``cpu``: the CPU's), sound and with each
+    planted fault."""
     from rcf_tpu_torch.ops import crf as crf_ops
     from rcf_tpu_torch.train import step as step_mod
 
@@ -270,7 +319,6 @@ def rcf_crf_faults(torch, cs) -> dict:
               "sxy_unscaled": [(crf_ops, "xy_features", sxy_unscaled)],
               "batch_wide_freeze": [(crf_ops, "mean_field", batch_wide_freeze)],
               "tf32_logits": [(crf_ops, "crf_filter", tf32_logits)]}
-    cpu = cs.rcf_crf_reference_readings(torch, "cpu")
     out = {}
     for case, patches in faults.items():
         saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
@@ -400,9 +448,12 @@ def main() -> int:
     print(f"stage-1 limits {cs.RCF_REF_LIMITS}", flush=True)
     rcf = rcf_faults(torch, cs)
     print(f"stage-2.1 limits {cs.RCF_CRF_REF_LIMITS}", flush=True)
-    crf = rcf_crf_faults(torch, cs)
+    crf_cpu = cs.rcf_crf_reference_readings(torch, "cpu")
+    crf = rcf_crf_faults(torch, cs, crf_cpu)
+    print(f"crf_kernel limits {cs.CRF_TOL}", flush=True)
+    crf_kernel = crf_kernel_faults(torch, cs, crf_cpu)
     print(json.dumps({"device": smi, "cases": out, "tail_dropped": tail, **overlap,
-                      "rcf": rcf, "rcf_crf": crf}))
+                      "rcf": rcf, "rcf_crf": crf, "crf_kernel": crf_kernel}))
     return 0
 
 
