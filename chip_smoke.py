@@ -102,11 +102,34 @@ Phases, each timed:
                 pair; the ex2 unit binds) and
                 ``scaled_dot_product_attention`` computing the same filter.
 
+13. train_cli - the trainer through its entry point, ``rcf_tpu_torch.cli.main``,
+                in process: a synthetic set in the DAVIS layout written by the
+                port's own encoders (4 sequences x 12 frames, 480x854, JPEG
+                q95, PNG masks, .npy flows; tools/make_synthetic_davis.py's
+                easy sequences) under ``rcf_tpu_torch/build/smoke_train/``;
+                ``--print-config`` of configs/rcf/rcf_stage1.yaml in a
+                subprocess (no yaml here) against the tree loaded in process;
+                stage 1 of the DAVIS recipe at full width and batch (16 pairs
+                of 384^2 crops, 2 epochs, validation each epoch, the election
+                after epoch 2, no DenseCL init), and its step outside the loop
+                at the same batch (``bare_step_ms``); stage 2.1 from stage 1's
+                ``last`` (weights only: the restored state read where the loop
+                restores it and held bit for bit against the saved file, the
+                EMA expanded), 1 epoch on the elected channel, crf_filter
+                launched; ``restore_checkpoint(last)`` against the trained
+                state, bit for bit; ``--test`` on stage 2.1's ``last`` with the
+                export (frames x channels masks); 1 AMD epoch (warp_fwd,
+                warp_bwd, splat launched) and its test. Readings from each
+                run's ``metrics.jsonl``: step ms through the loop (steps 2+),
+                loader wait a step, frames/s, eval frames/s, checkpoint save
+                ms and size, stage 1's peak memory, decode ms a frame and
+                train-transform ms a pair.
+
 Prints a ``{"kernels": [...]}`` line, a line with the AMD, stage-1 and
 stage-2.1 step times (f32 and bf16), the peak memory, the stage-2.1 mean
 field's iterations and syncs, the reference readings and the phase
-seconds, the card's name and power limit, and as the last line
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+seconds, a ``{"train_cli": ...}`` line, the card's name and power limit,
+and as the last line ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed phase raises: the exit code is then not 0 and no result line is
 printed. Without a CUDA device, or without the package beside it, it exits
 with an error at once.
@@ -1616,6 +1639,381 @@ def phase_timing(torch, wk, counts: dict, errs: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# train_cli: the trainer through its entry point (``rcf_tpu_torch.cli``) on a
+# synthetic set in the DAVIS layout, written by the port itself.
+# ---------------------------------------------------------------------------
+
+TRAIN_DIR = "rcf_tpu_torch/build/smoke_train"
+TRAIN_SEQS, TRAIN_FRAMES, TRAIN_HW = 4, 12, (480, 854)
+STAGE1_EPOCHS = 2
+MASK_CHANNELS = 4  # configs/rcf: mask_layer
+
+
+def _texture(rng, h: int, w: int, base):
+    """Smooth coloured noise around a base colour (make_synthetic_davis._texture)."""
+    import numpy as np
+
+    from rcf_tpu_torch.data.transforms import imresize
+
+    noise = rng.standard_normal((h // 8 + 2, w // 8 + 2, 3))
+    small = ((noise - noise.min()) / (np.ptp(noise) + 1e-9) * 255).astype(np.uint8)
+    img = imresize(small, (h, w), "bilinear").astype(np.float32)
+    return np.clip(0.6 * img + 0.4 * base[None, None], 0, 255)
+
+
+def write_synthetic_davis(root: str, seed: int = 0) -> None:
+    """tools/make_synthetic_davis.py's easy sequences (a textured square moving
+    at a constant velocity over a drifting textured background, piecewise
+    constant flows), written with the port's own encoders: JPEG q95 4:2:0
+    frames, PNG masks, .npy forward/backward flows, trainval.txt / val.txt."""
+    import os
+
+    import numpy as np
+
+    from rcf_tpu_torch.data.image_io import write_jpeg, write_png
+
+    h, w = TRAIN_HW
+    rng = np.random.default_rng(seed)
+    lines = []
+    for s in range(TRAIN_SEQS):
+        seq = f"synth{s:02d}"
+        dirs = {k: os.path.join(root, k, "480p", seq) for k in
+                ("JPEGImages", "Annotations", "Flows_NewCT", "BackwardFlows_NewCT")}
+        for d in dirs.values():
+            os.makedirs(d, exist_ok=True)
+        bg = _texture(rng, h, w, rng.uniform(40, 120, 3))
+        size = int(rng.integers(min(h, w) // 5, min(h, w) // 3))
+        fg = _texture(rng, size, size, rng.uniform(150, 240, 3))
+        v_obj, v_bg = rng.uniform(-6, 6, 2), rng.uniform(-1.5, 1.5, 2)
+        pos0 = np.array([rng.uniform(0, h - size), rng.uniform(0, w - size)])
+        span = np.array([h - size, w - size], np.float64)
+        prev = None
+        for t in range(TRAIN_FRAMES):
+            pos = np.abs(((pos0 + v_obj * t) % (2 * span)) - span)
+            y, x = int(round(pos[0])), int(round(pos[1]))
+            img = np.roll(bg, (int(v_bg[0] * t), int(v_bg[1] * t)), axis=(0, 1)).copy()
+            img[y:y + size, x:x + size] = fg
+            mask = np.zeros((h, w), np.uint8)
+            mask[y:y + size, x:x + size] = 255
+            write_jpeg(os.path.join(dirs["JPEGImages"], f"{t:05d}.jpg"), img.astype(np.uint8),
+                       quality=95)
+            write_png(os.path.join(dirs["Annotations"], f"{t:05d}.png"), mask)
+            if prev is not None:
+                p_mask, p_yx = prev
+                d = (np.array([y, x]) - p_yx).astype(np.float32)
+                fw = np.empty((h, w, 2), np.float32)
+                fw[...] = (v_bg[1], v_bg[0])
+                fw[p_mask > 0] = (d[1], d[0])
+                bw = np.empty((h, w, 2), np.float32)
+                bw[...] = (-v_bg[1], -v_bg[0])
+                bw[mask > 0] = (-d[1], -d[0])
+                np.save(os.path.join(dirs["Flows_NewCT"], f"{t:05d}.npy"), fw)
+                np.save(os.path.join(dirs["BackwardFlows_NewCT"], f"{t:05d}.npy"), bw)
+            prev = (mask, np.array([y, x]))
+        lines.append(f"JPEGImages/480p/{seq}/ " + " ".join(f"{t:05d}.jpg" for t in range(TRAIN_FRAMES)))
+    for split in ("trainval.txt", "val.txt"):
+        with open(os.path.join(root, split), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+def _records(ckpt_dir: str) -> list:
+    import os
+
+    with open(os.path.join(ckpt_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def loop_readings(ckpt_dir: str) -> dict:
+    """Host readings of one CLI run from its metrics.jsonl: the train steps'
+    time (steps 2+: from the batch in hand to the losses on the host) and the
+    loader's wait before each; frames/s over the epochs' train time (each
+    epoch's cold first batch included, so at a few steps an epoch it mostly
+    reads start-up) and over the steps after each epoch's first (the steady
+    rate: step plus loader wait); the evaluations' frames/s and the
+    checkpoints' save time. Every step is logged (``loss_log_interval 1``)."""
+    recs = _records(ckpt_dir)
+    steps = [r for r in recs if "train_loss" in r]
+    later = [r for r in steps if r["step"] >= 2] or steps
+    epochs = [r for r in recs if "train_epoch_s" in r]
+    out = {"steps": len(steps)}
+    if steps:
+        out.update(step_ms=1e3 * sum(r["step_s"] for r in later) / len(later),
+                   loader_wait_ms=1e3 * sum(r["loader_wait_s"] for r in later) / len(later),
+                   first_step_ms=1e3 * steps[0]["step_s"],
+                   first_loader_wait_ms=1e3 * steps[0]["loader_wait_s"],
+                   losses={k: [r[k] for r in steps] for k in steps[0] if k.startswith("train_")})
+    if epochs:
+        out["train_frames_per_s"] = (sum(r["train_frames"] for r in epochs)
+                                     / sum(r["train_epoch_s"] for r in epochs))
+        out["epoch_s"] = [r["train_epoch_s"] for r in epochs]
+        frames_per_step = sum(r["train_frames"] for r in epochs) / len(steps)
+        steady = [r for i, r in enumerate(steps) if i and r["epoch"] == steps[i - 1]["epoch"]]
+        if steady:
+            out["steady_steps"] = len(steady)
+            out["steady_frames_per_s"] = frames_per_step * len(steady) / sum(
+                r["step_s"] + r["loader_wait_s"] for r in steady)
+    for name in ("val_miou", "test_miou"):
+        evals = [r for r in recs if f"{name}_frames" in r]
+        if evals:
+            out[f"{name}_frames_per_s"] = (sum(r[f"{name}_frames"] for r in evals)
+                                           / sum(r[f"{name}_s"] for r in evals))
+    saves = [r["checkpoint_s"] for r in recs if "checkpoint_s" in r]
+    if saves:
+        out["checkpoint_ms"] = [1e3 * s for s in saves]
+    out["val_miou"] = [r["val_miou"] for r in recs if "val_miou" in r]
+    return out
+
+
+def _nonfinite_losses(readings: dict) -> list:
+    return [(k, v) for k, vals in readings.get("losses", {}).items() for v in vals
+            if not math.isfinite(v)]
+
+
+def data_timing(root: str, pairs: int = 8, decodes: int = 20) -> dict:
+    """Host ms to decode one 480x854 JPEG frame and to augment one pair
+    (TrainTransform of the DAVIS recipe, one thread, the frames decoded before)."""
+    import os
+
+    import numpy as np
+
+    from rcf_tpu_torch.data import TrainTransform, VideoDataset
+    from rcf_tpu_torch.data.image_io import read_image
+
+    frame = os.path.join(root, "JPEGImages", "480p", "synth00", "00001.jpg")
+    read_image(frame)
+    t0 = time.perf_counter()
+    for _ in range(decodes):
+        read_image(frame)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / decodes
+    ds = VideoDataset(root, "trainval.txt", training=True, frame_num=2, load_flow=True,
+                      flow_suffix="_NewCT")
+    tf = TrainTransform(strong_aug=True)
+    samples = [ds[i % len(ds)] for i in range(pairs)]
+    t0 = time.perf_counter()
+    for i, s in enumerate(samples):
+        tf(s, np.random.default_rng((0, 0, i)))
+    return {"decode_ms": decode_ms,
+            "transform_ms_per_pair": (time.perf_counter() - t0) * 1e3 / pairs}
+
+
+def bare_step_ms(torch, state, pairs: int, steps: int = STEPS) -> float:
+    """Mean ms of steps 2+ of the stage-1 train step on ``state`` at ``pairs``
+    pairs of 384^2 frames and flows made on the card (``rcf_batch``), with no
+    loader running: the loop's step without its host-side company."""
+    from rcf_tpu_torch.train import make_train_step
+
+    step = make_train_step()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = rcf_batch(torch, gen, pairs, 384, "cuda")
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses = step(state, batch, generator=gen)
+        float(losses["loss"])
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sum(times[1:]) / len(times[1:])
+
+
+def print_config_tree(recipe: str) -> dict:
+    """``python -m rcf_tpu_torch.cli <recipe> --print-config`` in a subprocess
+    (this machine has no yaml); its printed tree, the log lines dropped."""
+    import re
+
+    from rcf_tpu_torch import yaml_subset
+
+    proc = subprocess.run([sys.executable, "-m", "rcf_tpu_torch.cli", recipe, "--print-config"],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"--print-config exited {proc.returncode}: {proc.stderr[-2000:]}")
+    text = "\n".join(line for line in proc.stdout.splitlines()
+                     if not re.match(r"^\d{4}-\d\d-\d\d .* - rcf_tpu_torch - ", line))
+    return yaml_subset.load(text, f"{recipe} --print-config")
+
+
+def train_cli_readings(torch, wk, ck) -> tuple[dict, list]:
+    """The trainer through ``rcf_tpu_torch.cli.main``, in process (the launch
+    counters stay readable): stage 1 of the DAVIS recipe at full width and
+    batch (16 pairs of 384^2 crops; 48 pairs wrap to 3 steps an epoch), 2
+    epochs with validation and the election after epoch 2; stage 2.1 from its
+    ``last`` (weights only, the EMA expanded) for 1 epoch on the elected
+    channel; ``--test`` on stage 2.1's ``last`` with export; 1 epoch of the
+    AMD recipe. Returns the readings and the failed checks."""
+    import os
+    import shutil
+
+    from rcf_tpu_torch import cli
+    from rcf_tpu_torch.config import load_config
+    from rcf_tpu_torch.train import create_train_state
+    from rcf_tpu_torch.train import loop as train_loop
+    from rcf_tpu_torch.train.checkpoint import read_checkpoint, restore_checkpoint
+    from rcf_tpu_torch.models import build_from_config
+    from rcf_tpu_torch.train.state import compute_dtype
+
+    root = os.path.abspath(TRAIN_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    out, failures = {}, []
+    t0 = time.perf_counter()
+    write_synthetic_davis(root)
+    out["write_s"] = time.perf_counter() - t0
+    out.update(data_timing(root))
+    log(f"train_cli: synthetic set ({TRAIN_SEQS} x {TRAIN_FRAMES} frames, "
+        f"{TRAIN_HW[0]}x{TRAIN_HW[1]}) written in "
+        f"{out['write_s']:.1f} s; decode {out['decode_ms']:.2f} ms a frame, train transform "
+        f"{out['transform_ms_per_pair']:.1f} ms a pair")
+
+    recipe = "configs/rcf/rcf_stage1.yaml"
+    if print_config_tree(recipe) != load_config(recipe).to_dict():
+        failures.append("--print-config's tree differs from the one loaded in process")
+
+    dirs = {k: os.path.join(root, k) for k in ("stage1", "stage2_1", "amd")}
+    common = ["data_path", root, "loss_log_interval", "1"]
+
+    # Stage 1.
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    state = cli.main([recipe, "--no-test", "--opts", *common, "checkpoints_dir", dirs["stage1"],
+                      "pretrained_model", "null", "epochs", str(STAGE1_EPOCHS)])
+    torch.cuda.synchronize()
+    out["stage1_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["stage1_s"] = time.perf_counter() - t0
+    batch = int(load_config(recipe).global_batch_size)
+    # The same step outside the loop, at the recipe's batch, no loader running.
+    out["stage1_bare_step_ms"] = bare_step_ms(torch, state, batch)
+    del state
+    s1 = loop_readings(dirs["stage1"])
+    out["stage1"] = s1
+    oc_path = os.path.join(dirs["stage1"], "object_channel.json")
+    if not os.path.isfile(oc_path):
+        failures.append("stage 1: no object_channel.json")
+        channel = 0
+    else:
+        with open(oc_path) as f:
+            channel = int(json.load(f)["object_channel"])
+    entries = os.listdir(dirs["stage1"])
+    if "last" not in entries or sum(e.startswith("ckpt_") for e in entries) != 2:
+        failures.append(f"stage 1: expected last and two ckpt_*, found {sorted(entries)}")
+    expected = -(-TRAIN_SEQS * TRAIN_FRAMES // batch) * STAGE1_EPOCHS  # wrap-padded to whole batches
+    if s1["steps"] != expected:
+        failures.append(f"stage 1: {s1['steps']} logged steps, expected {expected}")
+    if len(s1["val_miou"]) != STAGE1_EPOCHS or not all(map(math.isfinite, s1["val_miou"])):
+        failures.append(f"stage 1: val_miou {s1['val_miou']}")
+    last1 = os.path.join(dirs["stage1"], "last")
+    out["checkpoint_mib"] = sum(os.path.getsize(os.path.join(last1, f))
+                                for f in os.listdir(last1)) / 2**20
+
+    # Stage 2.1 from stage 1's last; the first state read where the loop restores it.
+    first = {}
+    restore = train_loop.restore_checkpoint
+
+    def spy(path, st, weights_only=False):
+        st = restore(path, st, weights_only=weights_only)
+        first.update(path=path, weights_only=weights_only,
+                     sd={k: v.detach().cpu().clone() for k, v in st.model.state_dict().items()})
+        return st
+
+    train_loop.restore_checkpoint = spy
+    wk.reset_launch_counts()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        state = cli.main(["configs/rcf/rcf_stage2.1.yaml", "--no-test", "--opts", *common,
+                          "checkpoints_dir", dirs["stage2_1"], "pretrained_model", last1,
+                          "epochs", "1", "object_channel", str(channel)])
+    finally:
+        train_loop.restore_checkpoint = restore
+    out["stage2_1_s"] = time.perf_counter() - t0
+    launches_2_1 = {**wk.LAUNCHES, **ck.LAUNCHES}
+    out["stage2_1"] = loop_readings(dirs["stage2_1"])
+    out["stage2_1"]["launches"] = launches_2_1
+    if launches_2_1["crf_filter"] == 0:
+        failures.append("stage 2.1: crf_filter was never launched")
+    saved1 = {k[len("model."):]: v for k, v in read_checkpoint(last1)["state_dict"].items()}
+    if not first or first["path"] != last1 or not first["weights_only"]:
+        failures.append(f"stage 2.1 did not restore stage 1's last weights-only: "
+                        f"{ {k: first.get(k) for k in ('path', 'weights_only')} }")
+    else:
+        differ = [k for k, v in saved1.items() if not torch.equal(first["sd"][k], v)]
+        not_expanded = [k for k in first["sd"] if "_ema." in k and not torch.equal(
+            first["sd"][k], saved1[k.replace("_ema.", ".", 1)])]
+        if differ or not_expanded:
+            failures.append(f"stage 2.1's first state is not stage 1's last: {differ[:3]} differ,"
+                            f" EMA not expanded in {not_expanded[:3]}")
+    # restore_checkpoint(last) gives back the saved parameters bit for bit.
+    last21 = os.path.join(dirs["stage2_1"], "last")
+    cfg21 = load_config("configs/rcf/rcf_stage2.1.yaml")
+    fresh = create_train_state(cfg21.to_dict(), build_from_config(
+        cfg21, device="cuda", seed=1, dtype=compute_dtype(cfg21.to_dict())), 1)
+    fresh = restore_checkpoint(last21, fresh)
+    bad = [k for k, v in state.model.state_dict().items()
+           if not torch.equal(fresh.model.state_dict()[k], v)]
+    if bad or fresh.step != state.step:
+        failures.append(f"restore_checkpoint(last) differs from the trained state: {bad[:3]}, "
+                        f"step {fresh.step} vs {state.step}")
+    del state, fresh, first
+
+    # --test on stage 2.1's last, with export.
+    t0 = time.perf_counter()
+    result = cli.main(["configs/rcf/rcf_stage2.1.yaml", "--test", "--test-override-pretrained",
+                       last21, "--test-override-object-channel", str(channel), "--opts",
+                       *common, "eval_export", "true"])
+    out["test_s"] = time.perf_counter() - t0
+    out["test_miou"] = result.miou
+    out["test"] = loop_readings(dirs["stage2_1"])
+    export = os.path.join(dirs["stage2_1"], "saved_eval_export")
+    n_export = sum(len(files) for _, _, files in os.walk(export))
+    out["exported"] = n_export
+    if not math.isfinite(result.miou):
+        failures.append(f"test_miou {result.miou}")
+    n_masks = TRAIN_SEQS * TRAIN_FRAMES * MASK_CHANNELS
+    if n_export != n_masks:
+        failures.append(f"exported {n_export} masks, expected {n_masks}")
+
+    # One AMD epoch (its final test included).
+    wk.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = cli.main(["configs/amd/amd.yaml", "--opts", *common, "test_data_path", root,
+                       "train_dataset_kwargs.split", "trainval.txt", "checkpoints_dir",
+                       dirs["amd"], "epochs", "1"])
+    out["amd_s"] = time.perf_counter() - t0
+    out["amd"] = loop_readings(dirs["amd"])
+    out["amd"]["launches"] = dict(wk.LAUNCHES)
+    out["amd_test_miou"] = result.miou
+    missing = [k for k in STEP_KERNELS if wk.LAUNCHES[k] == 0]
+    if missing:
+        failures.append(f"AMD: {missing} never launched")
+    if not math.isfinite(result.miou):
+        failures.append(f"AMD test_miou {result.miou}")
+
+    for stage in ("stage1", "stage2_1", "amd"):
+        bad = _nonfinite_losses(out[stage])
+        if bad:
+            failures.append(f"{stage}: non-finite losses {bad[:3]}")
+        log(f"train_cli {stage}: step {out[stage].get('step_ms', float('nan')):.1f} ms (steps 2+), "
+            f"loader wait {out[stage].get('loader_wait_ms', float('nan')):.1f} ms a step, "
+            f"{out[stage].get('train_frames_per_s', float('nan')):.1f} frames/s over the epochs, "
+            f"{out[stage].get('steady_frames_per_s', float('nan')):.1f} steady "
+            f"({out[stage].get('steady_steps', 0)} steps after each epoch's first), "
+            f"{out[stage].get('val_miou_frames_per_s', float('nan')):.1f} val frames/s")
+    log(f"train_cli: stage 1 bare step {out['stage1_bare_step_ms']:.1f} ms "
+        f"({2e3 * batch / out['stage1_bare_step_ms']:.1f} frames/s; the same step, batch "
+        f"and card, no loader); peak "
+        f"{out['stage1_peak_gib']:.2f} GiB, checkpoint "
+        f"{out['checkpoint_mib']:.0f} MiB saved in {out['stage1'].get('checkpoint_ms')} ms; "
+        f"test mIoU {out['test_miou']:.4f} ({out['test'].get('test_miou_frames_per_s', 0):.1f} "
+        f"frames/s, {n_export} masks exported); launches stage 2.1 {launches_2_1}, "
+        f"AMD {out['amd']['launches']}")
+    return out, failures
+
+
+def phase_train_cli(torch, wk, ck) -> dict:
+    """``train_cli_readings`` on the card; raises on any failed check."""
+    out, failures = train_cli_readings(torch, wk, ck)
+    if failures:
+        raise RuntimeError("train_cli: " + "; ".join(failures))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1712,6 +2110,11 @@ def main() -> int:
     rows.append(crf_timing(torch, ck, crf_ops, crf_launches, errs["crf_filter"]))
     phases["timing"] = time.perf_counter() - t0
 
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_cli = phase_train_cli(torch, wk, ck)
+    phases["train_cli"] = time.perf_counter() - t0
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     phases["total"] = time.perf_counter() - t_all
@@ -1726,6 +2129,7 @@ def main() -> int:
                       "rcf_peak_gib_bf16": rcf["rcf_step_bf16"]["peak_gib"],
                       "stage2_1": stage2_1, "rcf_reference": rcf_errs,
                       "rcf_crf_reference": crf_errs, "phases_s": phases}), flush=True)
+    print(json.dumps({"train_cli": train_cli}), flush=True)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: no output",
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

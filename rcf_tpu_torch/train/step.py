@@ -109,13 +109,15 @@ def make_train_step(crf_fn: Callable | None = None) -> Callable[..., dict]:
 
 
 def make_eval_step(use_ema: bool = False) -> Callable[..., torch.Tensor]:
-    """Return ``eval_step(state, imgs) -> probs``: an RCF model's mask
+    """Return ``eval_step(state, imgs) -> probs``: the model's mask
     probabilities [B, h, w, C] for frames [B, H, W, 3], in eval mode, from
-    the main or the EMA weights."""
+    the main or (an RCF model's) EMA weights."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, imgs: torch.Tensor) -> torch.Tensor:
         state.model.eval()
-        return state.model.mask_probs(imgs, use_ema=use_ema)
+        if use_ema:
+            return state.model.mask_probs(imgs, use_ema=True)
+        return state.model.mask_probs(imgs)
 
     return eval_step

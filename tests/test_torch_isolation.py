@@ -50,7 +50,31 @@ def test_port_imports_without_jax_and_its_dependencies():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 20  # every module of the package was imported
+    assert int(proc.stdout.split()[-1]) >= 48  # every module of the package was imported
+
+
+_CODEC = _IMPORT_ALL.split("import rcf_tpu_torch")[0] + textwrap.dedent("""
+    import numpy as np
+    from rcf_tpu_torch.data import image_io
+
+    y, x = np.mgrid[0:37, 0:53]
+    img = np.stack([x * 4, y * 6, (x + y) * 2], -1).astype(np.uint8)  # smooth ramps
+    assert np.array_equal(image_io.decode_png(image_io.encode_png(img)), img)
+    back = image_io.decode_jpeg(image_io.encode_jpeg(img, quality=95))
+    assert back.shape == img.shape and np.abs(back.astype(int) - img).mean() < 2
+    leaked = sorted(m for m in sys.modules if blocked(m))
+    assert not leaked, leaked
+    print("codec ok")
+""")
+
+
+def test_codec_builds_and_decodes_without_pil_or_cv2():
+    """The image codec (host C++, built at first use) writes and reads a PNG
+    and a JPEG with yaml, cv2, PIL and JAX blocked."""
+    proc = subprocess.run([sys.executable, "-c", _CODEC], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split()[-1] == "ok"
 
 
 def test_entry_points_need_a_card_unless_given_cpu(monkeypatch):
