@@ -124,11 +124,34 @@ Phases, each timed:
                 loader wait a step, frames/s, eval frames/s, checkpoint save
                 ms and size, stage 1's peak memory, decode ms a frame and
                 train-transform ms a pair.
+14. stage2_pipeline - the README pipeline after stage 2.1 through the port's
+                entry points, on a second synthetic set (2 x 9 frames,
+                480x854) under ``rcf_tpu_torch/build/smoke_train/pipeline/``
+                and a seeded random ViT-S/8 saved in the official DINO layout:
+                stage 1's export (``rcf_export_trainval.yaml --test``), the MAA
+                election (``grouping.maa.main``; the channel in range),
+                stage 2.1's EMA export, the semantic constraints over every
+                frame (native lattice), stage 2.2 at full width and its
+                16-pair batch through ``cli.main`` (``pl_masks`` in every step,
+                ``loss_pl`` finite) and its bare step, ``rcf_eval.yaml --test``
+                with export, CRF-PP native over every frame and on the card
+                (``--engine device``, the full grid, one frame: ``crf_filter``
+                must launch), DAVIS J&F (``eval.davis.main``, its CSV) and the
+                FBMS59 evaluator on a copy in that layout; then the holds
+                (``STAGE2_LIMITS``): ``crf_filter`` at B=1, N=409,920 against
+                plain rows (and its ms beside the 40.1 ms bound, and f32
+                SDPA), DINO keys and the affinity card against CPU,
+                ``ncut_refine`` card against CPU, ``refine_frame`` card
+                against CPU with the native engine (480x854) and the
+                attention engine (48x86), and the DAVIS J/F in torch on the
+                card against numpy; the timings of each stage, DINO, NCut, a
+                native pass, the attention engine's frame and the evaluator.
 
 Prints a ``{"kernels": [...]}`` line, a line with the AMD, stage-1 and
 stage-2.1 step times (f32 and bf16), the peak memory, the stage-2.1 mean
 field's iterations and syncs, the reference readings and the phase
-seconds, a ``{"train_cli": ...}`` line, the card's name and power limit,
+seconds, a ``{"train_cli": ...}`` line, a ``{"stage2_pipeline": ...}`` line,
+the card's name and power limit,
 and as the last line ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed phase raises: the exit code is then not 0 and no result line is
 printed. Without a CUDA device, or without the package beside it, it exits
@@ -1662,11 +1685,13 @@ def _texture(rng, h: int, w: int, base):
     return np.clip(0.6 * img + 0.4 * base[None, None], 0, 255)
 
 
-def write_synthetic_davis(root: str, seed: int = 0) -> None:
+def write_synthetic_davis(root: str, seed: int = 0, seqs: int = TRAIN_SEQS,
+                          frames: int = TRAIN_FRAMES) -> None:
     """tools/make_synthetic_davis.py's easy sequences (a textured square moving
     at a constant velocity over a drifting textured background, piecewise
     constant flows), written with the port's own encoders: JPEG q95 4:2:0
-    frames, PNG masks, .npy forward/backward flows, trainval.txt / val.txt."""
+    frames, PNG masks, .npy forward/backward flows, trainval.txt / val.txt;
+    ``seqs`` sequences of ``frames`` frames."""
     import os
 
     import numpy as np
@@ -1676,7 +1701,7 @@ def write_synthetic_davis(root: str, seed: int = 0) -> None:
     h, w = TRAIN_HW
     rng = np.random.default_rng(seed)
     lines = []
-    for s in range(TRAIN_SEQS):
+    for s in range(seqs):
         seq = f"synth{s:02d}"
         dirs = {k: os.path.join(root, k, "480p", seq) for k in
                 ("JPEGImages", "Annotations", "Flows_NewCT", "BackwardFlows_NewCT")}
@@ -1689,7 +1714,7 @@ def write_synthetic_davis(root: str, seed: int = 0) -> None:
         pos0 = np.array([rng.uniform(0, h - size), rng.uniform(0, w - size)])
         span = np.array([h - size, w - size], np.float64)
         prev = None
-        for t in range(TRAIN_FRAMES):
+        for t in range(frames):
             pos = np.abs(((pos0 + v_obj * t) % (2 * span)) - span)
             y, x = int(round(pos[0])), int(round(pos[1]))
             img = np.roll(bg, (int(v_bg[0] * t), int(v_bg[1] * t)), axis=(0, 1)).copy()
@@ -1711,7 +1736,7 @@ def write_synthetic_davis(root: str, seed: int = 0) -> None:
                 np.save(os.path.join(dirs["Flows_NewCT"], f"{t:05d}.npy"), fw)
                 np.save(os.path.join(dirs["BackwardFlows_NewCT"], f"{t:05d}.npy"), bw)
             prev = (mask, np.array([y, x]))
-        lines.append(f"JPEGImages/480p/{seq}/ " + " ".join(f"{t:05d}.jpg" for t in range(TRAIN_FRAMES)))
+        lines.append(f"JPEGImages/480p/{seq}/ " + " ".join(f"{t:05d}.jpg" for t in range(frames)))
     for split in ("trainval.txt", "val.txt"):
         with open(os.path.join(root, split), "w") as f:
             f.write("\n".join(lines) + "\n")
@@ -1797,15 +1822,20 @@ def data_timing(root: str, pairs: int = 8, decodes: int = 20) -> dict:
             "transform_ms_per_pair": (time.perf_counter() - t0) * 1e3 / pairs}
 
 
-def bare_step_ms(torch, state, pairs: int, steps: int = STEPS) -> float:
+def bare_step_ms(torch, state, pairs: int, steps: int = STEPS, pl: bool = False) -> float:
     """Mean ms of steps 2+ of the stage-1 train step on ``state`` at ``pairs``
     pairs of 384^2 frames and flows made on the card (``rcf_batch``), with no
-    loader running: the loop's step without its host-side company."""
+    loader running: the loop's step without its host-side company. ``pl``:
+    with binary pseudo-labels of the frames and object channel 0 set (the
+    stage-2.2 step)."""
     from rcf_tpu_torch.train import make_train_step
 
     step = make_train_step()
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch = rcf_batch(torch, gen, pairs, 384, "cuda")
+    if pl:
+        batch.update(object_channel=0, object_channel_set=True, pl_masks=(
+            torch.rand(pairs, 2, 384, 384, generator=gen, device="cuda") > 0.5).float())
     times = []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -2014,6 +2044,436 @@ def phase_train_cli(torch, wk, ck) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# stage2_pipeline: the README pipeline after stage 2.1 through the port's entry
+# points (stage-1 export -> MAA -> stage-2.1 EMA export -> semantic constraints
+# -> stage 2.2 -> eval export -> CRF post-processing -> DAVIS J&F, and the
+# SegTrackv2/FBMS59 evaluator), on a smaller synthetic set, then the holds.
+# ---------------------------------------------------------------------------
+
+PIPE_SEQS, PIPE_FRAMES = 2, 9  # 18 frames: the 16-pair stage-2.2 batch wraps to 2 steps
+CRF_480P = (480, 854)  # the tools' mean-field grid: N = 409,920
+CRF_ROWS = 4096  # query rows held against a plain computation over all keys
+# Limits of the stage-2 holds (card against the stated reference), set before
+# the first card run:
+# - crf_rows_480p: the kernel's rows against plain f32 rows at N = 409,920
+#   (CRF_TOL's structured-set limit; the same features' scales as training);
+# - dino_rel: ViT-S/8 last-layer keys at 480x856, card against the port on the
+#   CPU, max |diff| over max |CPU| (TF32 off; twelve layers of f32 sums in
+#   another order);
+# - affinity_flips: share of the 6420^2 thresholded affinity entries that differ
+#   between the card's keys and the CPU's (a product within the keys' error of
+#   tau flips);
+# - ncut_cells: share of the 60x107 refined grid whose card value is more than
+#   1e-3 from the CPU's (or not finite) on identical colour features and the
+#   frame's soft annotation (Adam's first step is g/|g|: a gradient near 0 may
+#   change sign);
+# - refine_*: share of a frame's pseudo-label pixels that differ, card against
+#   CPU: the native engine at 480x854 on the soft annotation (colour
+#   features) and on the export's mask (ViT keys) (the CRF's uint8 unary
+#   levels can move a pixel where the NCut grid moves), the attention engine
+#   on a 48x86 frame with colour features (the CPU's plain filter at 480x854
+#   is out of reach);
+# - davis_jf: per-frame J and F of the DAVIS evaluator in torch on the card
+#   against numpy and scipy on the host, on the pipeline's masks and on each
+#   annotation against the next frame's (integer counts: exact).
+STAGE2_LIMITS = {"crf_rows_480p": 2e-4, "dino_rel": 1e-3, "affinity_flips": 1e-4,
+                 "ncut_cells": 1e-3, "refine_native_differ": 5e-3,
+                 "refine_attention_differ": 5e-3, "davis_jf": 1e-12}
+
+
+def write_dino_checkpoint(path: str) -> str:
+    """A ViT-S/8 (patch 8, 384 wide, depth 12, 6 heads, position grid 28) with
+    PyTorch's default initialization from seed 0, saved in the official DINO
+    key layout (``dino_deitsmall8_300ep_pretrain.pth``'s)."""
+    import torch
+
+    from rcf_tpu_torch.nn.dino_vit import vit_small
+
+    torch.manual_seed(0)
+    torch.save(vit_small(patch_size=8).state_dict(), path)
+    return path
+
+
+def crf_rows(torch, feat, values, rows, dtype, chunk: int = 256):
+    """The normalized filter at the query ``rows`` of one image over all its keys,
+    in ``dtype``, from explicit per-dimension products (no TF32)."""
+    f, v = feat[0].to(dtype), values[0].to(dtype)
+    sq = (f * f).sum(-1) * 0.5
+    out = []
+    for c in range(0, len(rows), chunk):
+        q = rows[c:c + chunk]
+        dots = f[q, None, 0] * f[None, :, 0]
+        for k in range(1, f.shape[1]):
+            dots = dots + f[q, None, k] * f[None, :, k]
+        w = torch.exp(dots - sq[None, :] - sq[q, None])
+        out.append((w * v[None, :]).sum(-1) / w.sum(-1))
+    return torch.cat(out)
+
+
+def crf_480p_readings(torch, ck, crf_ops, rgb_u8, mask) -> dict:
+    """crf_filter at the tools' grid (B = 1, 480x854, D = 5: a pipeline frame's
+    features at sxy 60, srgb 5, the first pass's q1 as values): CRF_ROWS seeded
+    rows against plain f32 and float64 rows; device ms beside the ex2 bound;
+    f32 SDPA (memory-efficient attention) as the yardstick."""
+    feat = crf_ops.pixel_features(rgb_u8[None], 60.0, 5.0)
+    unary = crf_ops.mask_to_unary(mask[None], 0.7).reshape(1, -1, 2)
+    vals = torch.sigmoid(unary[..., 0] - unary[..., 1]).contiguous()
+    n = feat.shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = torch.randperm(n, generator=gen, device="cuda")[:CRF_ROWS]
+    got = ck.crf_filter(feat, vals)[0, rows]
+    plain, exact = crf_rows(torch, feat, vals, rows, torch.float32), crf_rows(
+        torch, feat, vals, rows, torch.float64)
+    out = {"n": n, "max_abs_err": max_err(got, plain), "max_abs_err_f64": max_err(got, exact.float()),
+           "plain_err_f64": max_err(plain, exact.float())}
+    out["ms"] = cuda_ms(torch, lambda: ck.crf_filter(feat, vals), iters=5, warmup=1)
+    out["bound_ms"], out["bound_by"], out["bound_unit"] = crf_bound(1, n, 5)
+    lib = crf_sdpa(torch, feat, vals)
+    out["library_ms"] = cuda_ms(torch, lib, iters=2, warmup=1)
+    out["library_max_abs_err"] = max_err(lib()[0, rows], plain)
+    return out
+
+
+def jf_numpy(fg, gt) -> tuple:
+    """J and boundary F of one frame in numpy and scipy (davis2017/metrics.py):
+    the disk dilation by ``scipy.ndimage.binary_dilation`` (outside pixels 0)."""
+    import numpy as np
+    from scipy.ndimage import binary_dilation
+
+    from rcf_tpu_torch.eval.davis import _disk
+
+    union = np.sum(fg | gt)
+    j = 1.0 if union == 0 else np.sum(fg & gt) / union
+
+    def bmap(seg):
+        e, s_, se = (np.zeros_like(seg) for _ in range(3))
+        e[:, :-1], s_[:-1, :], se[:-1, :-1] = seg[:, 1:], seg[1:, :], seg[1:, 1:]
+        b = (seg ^ e) | (seg ^ s_) | (seg ^ se)
+        b[-1, :], b[:, -1] = seg[-1, :] ^ e[-1, :], seg[:, -1] ^ s_[:, -1]
+        b[-1, -1] = False
+        return b
+
+    radius = math.ceil(0.008 * np.linalg.norm(fg.shape))
+    fb, gb = bmap(fg), bmap(gt)
+    fd = binary_dilation(fb, structure=_disk(radius).astype(bool))
+    gd = binary_dilation(gb, structure=_disk(radius).astype(bool))
+    n_fg, n_gt = int(fb.sum()), int(gb.sum())
+    if n_fg == 0 or n_gt == 0:
+        return float(j), 1.0 if n_fg == n_gt else 0.0
+    p, r = np.sum(fb & gd) / float(n_fg), np.sum(gb & fd) / float(n_gt)
+    return float(j), 0.0 if p + r == 0 else float(2 * p * r / (p + r))
+
+
+class FixedFeatures:
+    """A ``DinoFeatures`` whose features of the one frame it is given are known
+    (the CPU's ViT keys, computed once for the DINO hold)."""
+
+    def __init__(self, dino, feats):
+        self.dino, self.feats = dino, feats
+
+    def __call__(self, imgs01):
+        return self.feats[None]
+
+    def __getattr__(self, name):
+        return getattr(self.dino, name)
+
+
+def stage2_pipeline_readings(torch, wk, ck, crf_ops) -> tuple[dict, list]:
+    """The README pipeline from the stage-1 export to DAVIS J&F through the port's
+    entry points, on ``PIPE_SEQS`` x ``PIPE_FRAMES`` synthetic 480x854 frames,
+    from ``train_cli``'s stage-1 and stage-2.1 checkpoints, with a seeded random
+    ViT-S/8 in the official layout (``write_dino_checkpoint``); the launch
+    counts reset before the pipeline and read after it. Then the holds
+    (``STAGE2_LIMITS``) and the per-stage timings. Returns the readings and
+    the failed checks."""
+    import contextlib
+    import csv
+    import io
+    import os
+    import shutil
+
+    import numpy as np
+
+    from rcf_tpu_torch import cli
+    from rcf_tpu_torch.data.image_io import read_image
+    from rcf_tpu_torch.eval import crf_pp, davis, stv2_fbms
+    from rcf_tpu_torch.grouping import maa, ncut, semantic_constraints
+    from rcf_tpu_torch.grouping.pipeline import DinoFeatures
+    from rcf_tpu_torch.ops.crf_native import crf_soft_native
+    from rcf_tpu_torch.ops.resize import resize_bilinear
+    from rcf_tpu_torch.train import loop as train_loop
+
+    base = os.path.abspath(TRAIN_DIR)
+    stage1, stage2_1 = os.path.join(base, "stage1"), os.path.join(base, "stage2_1")
+    root = os.path.join(base, "pipeline")
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(root, "data_davis")
+    stage2_2 = os.path.join(root, "stage2_2")
+    out, failures, times = {}, [], {}
+    t0 = time.perf_counter()
+    write_synthetic_davis(data, seed=1, seqs=PIPE_SEQS, frames=PIPE_FRAMES)
+    ckpt = write_dino_checkpoint(os.path.join(root, "dino_vits8_seed0.pth"))
+    times["write"] = time.perf_counter() - t0
+    seqs = [f"synth{s:02d}" for s in range(PIPE_SEQS)]
+    n_frames = PIPE_SEQS * PIPE_FRAMES
+    images = os.path.join(data, "JPEGImages", "480p")
+
+    def timed(name, fn, *args, **kwargs):
+        t = time.perf_counter()
+        result = fn(*args, **kwargs)
+        times[name] = time.perf_counter() - t
+        return result
+
+    wk.reset_launch_counts()
+    ck.reset_launch_counts()
+    # 1. Stage-1 export of every channel.
+    timed("export_stage1", cli.main, [
+        "configs/rcf/rcf_export_trainval.yaml", "--test", "--test-override-pretrained",
+        os.path.join(stage1, "last"), "--opts", "data_path", data])
+    # 2. MAA election: the channel is the tool's exit code.
+    channel = timed("maa", maa.main, [
+        "--pretrain_dir", stage1, "--export-dir-name", "saved_eval_export_trainval",
+        "--dataset", "davis", "--data-dir", root, "--seqs", ",".join(seqs),
+        "--dino-checkpoint", ckpt, "--first-frames-only"])
+    out["maa_channel"] = channel
+    if channel not in range(MASK_CHANNELS):
+        failures.append(f"MAA elected channel {channel}")
+        channel = 0
+    # 3. Stage-2.1 EMA export.
+    last21 = os.path.join(stage2_1, "last")
+    timed("export_stage2_1_ema", cli.main, [
+        "configs/rcf/rcf_export_trainval_ema.yaml", "--test", "--test-override-pretrained",
+        last21, "--test-override-object-channel", str(channel), "--opts", "data_path", data])
+    # 4. Semantic-constraint pseudo-labels, native lattice, every frame.
+    timed("semantic_constraints", semantic_constraints.main, [
+        "--pretrain_dir", stage2_1, "--object-channel", str(channel), "--dataset", "davis",
+        "--data-dir", root, "--dino-checkpoint", ckpt, "--crf-engine", "native"])
+    pl_dir = os.path.join(stage2_1, "saved_eval_export_trainval_ema"
+                          + semantic_constraints.SAVE_SUFFIX, str(channel))
+    n_pl = len(os.listdir(pl_dir))
+    if n_pl != n_frames:
+        failures.append(f"semantic constraints wrote {n_pl} pseudo-labels, expected {n_frames}")
+    # 5. Stage 2.2 at full width and the recipe's batch, pl_root from --opts.
+    seen_pl = []
+    make_step = train_loop.make_train_step
+
+    def spy(**kw):
+        step = make_step(**kw)
+
+        def wrapped(state, batch, generator=None):
+            seen_pl.append("pl_masks" in batch)
+            return step(state, batch, generator=generator)
+        return wrapped
+
+    train_loop.make_train_step = spy
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        state = timed("stage2_2", cli.main, [
+            "configs/rcf/rcf_stage2.2.yaml", "--no-test", "--opts", "data_path", data,
+            "loss_log_interval", "1", "checkpoints_dir", stage2_2, "pretrained_model", last21,
+            "epochs", "1", "object_channel", str(channel), "train_dataset_kwargs.pl_root",
+            pl_dir])
+    finally:
+        train_loop.make_train_step = make_step
+    out["stage2_2_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["stage2_2"] = loop_readings(stage2_2)
+    pl_losses = out["stage2_2"].get("losses", {}).get("train_loss_pl", [])
+    if not seen_pl or not all(seen_pl):
+        failures.append(f"stage 2.2: pl_masks reached {sum(seen_pl)} of {len(seen_pl)} steps")
+    if not pl_losses or not all(map(math.isfinite, pl_losses)):
+        failures.append(f"stage 2.2: loss_pl {pl_losses}")
+    bad = _nonfinite_losses(out["stage2_2"])
+    if bad:
+        failures.append(f"stage 2.2: non-finite losses {bad[:3]}")
+    # 6. Final eval and export.
+    last22 = os.path.join(stage2_2, "last")
+    result = timed("eval_export", cli.main, [
+        "configs/rcf/rcf_eval.yaml", "--test", "--test-override-pretrained", last22,
+        "--test-override-object-channel", str(channel), "--opts", "data_path", data])
+    out["test_miou"] = result.miou
+    export = os.path.join(stage2_2, "saved_eval_export", str(channel))
+    # 7. CRF post-processing: native over every frame; the device engine at the
+    #    full grid on one frame.
+    crf_dir = timed("crf_pp_native", crf_pp.run, images, export)
+    one = os.path.join(stage2_2, "one_frame", str(channel))
+    os.makedirs(one)
+    one_name = f"pred_seg_{seqs[0]}_00000_0000000.png"
+    shutil.copy(os.path.join(export, one_name), one)
+    ck.reset_launch_counts()
+    timed("crf_pp_device_frame", crf_pp.main, [
+        "--input", images, "--annotation-dir", one, "--engine", "device", "--allow_skip",
+        "--batch", "1"])
+    out["crf_pp_device_launches"] = ck.LAUNCHES["crf_filter"]
+    dev_map = read_image(os.path.join(one + "_crf", one_name), None) > 127
+    out["crf_pp_device_vs_native_agree"] = float(
+        (dev_map == (read_image(os.path.join(crf_dir, one_name), None) > 127)).mean())
+    # 8. DAVIS J&F of the post-processed masks.
+    printed = io.StringIO()  # the tool's printed report, kept out of this log
+    with contextlib.redirect_stdout(printed):
+        timed("davis", davis.main, ["--davis_path", data, "--results_path", crf_dir, "--set",
+                                    "val"])
+    with open(os.path.join(crf_dir, "global_results-val.csv")) as f:
+        rows = list(csv.reader(f))
+    out["davis"] = dict(zip(rows[0], map(float, rows[1])))
+    if not all(map(math.isfinite, out["davis"].values())):
+        failures.append(f"DAVIS summary {out['davis']}")
+    # 9. The FBMS59 evaluator on an FBMS59-layout copy (every other frame annotated).
+    fbms = os.path.join(root, "data_fbms59")
+    lines = []
+    for seq in seqs:
+        os.makedirs(os.path.join(fbms, "Annotations", seq))
+        names = [f"{t:05d}.jpg" for t in range(PIPE_FRAMES)]
+        for t in range(0, PIPE_FRAMES, 2):
+            shutil.copy(os.path.join(data, "Annotations", "480p", seq, f"{t:05d}.png"),
+                        os.path.join(fbms, "Annotations", seq))
+        lines.append(f"JPEGImages/{seq}/ " + " ".join(names))
+    with open(os.path.join(fbms, "val_all.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    fbms_res = timed("fbms", stv2_fbms.evaluate, "FBMS59", crf_dir, fbms)
+    out["fbms"] = {"miou": fbms_res["miou"], "num_frames": fbms_res["num_frames"]}
+    if not math.isfinite(fbms_res["miou"]) or fbms_res["num_frames"] != PIPE_SEQS * (
+            (PIPE_FRAMES + 1) // 2):
+        failures.append(f"FBMS59 evaluator {out['fbms']}")
+    out["launches"] = {**wk.LAUNCHES, **ck.LAUNCHES}
+    if out["crf_pp_device_launches"] == 0:
+        failures.append("crf_pp --engine device: crf_filter was never launched")
+    pipeline_s = sum(times.values())
+
+    # The holds, on the first frame of the set: its stage-2.1 export mask, and
+    # (where a near-empty export would leave the NCut degenerate) its object's
+    # annotation as a soft mask, 0.9 inside and 0.1 outside.
+    t_holds = time.perf_counter()
+    lim, holds = STAGE2_LIMITS, {}
+    img = maa.load_image(images, seqs[0], "00000")
+    mask = maa.load_pred_mask(os.path.join(stage2_1, "saved_eval_export_trainval_ema"),
+                              channel, seqs[0], "00000", 0)
+    ann = read_image(os.path.join(data, "Annotations", "480p", seqs[0], "00000.png"), None)
+    soft_gt = np.where(ann > 0, 0.9, 0.1).astype(np.float32)
+    rgb = torch.from_numpy(np.clip(img * 255.0, 0, 255).astype(np.uint8)).cuda()
+    r = crf_480p_readings(torch, ck, crf_ops, rgb, torch.from_numpy(mask).cuda())
+    out["crf_480p"] = r
+    holds["crf_rows_480p"] = r["max_abs_err"]
+    dino_gpu, dino_cpu = DinoFeatures(ckpt, device="cuda"), DinoFeatures(ckpt, device="cpu")
+    feats_gpu = dino_gpu(img[None])[0]
+    t = time.perf_counter()
+    feats_cpu = dino_cpu(img[None])[0]
+    times["hold_dino_cpu"] = time.perf_counter() - t
+    holds["dino_rel"] = rel_max(feats_gpu.cpu(), feats_cpu)
+    holds["affinity_flips"] = float((ncut.build_affinity(feats_gpu).cpu()
+                                     != ncut.build_affinity(feats_cpu)).float().mean())
+    # A random ViT's keys all lie within 0.2 of each other in cosine: the
+    # affinity is all ones and the NCut flat (the refinement drifts to an
+    # empty mask and NaN, as in JAX). The NCut holds take the tools' colour
+    # features (no checkpoint), whose affinity separates the object.
+    colour_gpu, colour_cpu = DinoFeatures(device="cuda"), DinoFeatures(device="cpu")
+    colour = colour_cpu(img[None])[0]
+    grid = colour_cpu.mask_to_grid(soft_gt)
+    ref_grid = ncut.ncut_refine(colour, grid)
+    card_grid = ncut.ncut_refine(colour.cuda(), grid.cuda()).cpu()
+    holds["ncut_cells"] = float((~((card_grid - ref_grid).abs() <= 1e-3)).float().mean())
+    out["ncut_max_abs"] = max_err(card_grid, ref_grid)
+    out["ncut_grid_mean"] = float(ref_grid.mean())
+    out["dino_ms"] = cuda_ms(torch, lambda: dino_gpu(img[None]), iters=5, warmup=1)
+    out["ncut_ms"] = cuda_ms(torch, lambda: ncut.ncut_refine(feats_gpu, grid.cuda()), iters=5,
+                             warmup=1)
+    t = time.perf_counter()
+    crf_soft_native(np.asarray(rgb.cpu()), mask, crf_scale=0.7)
+    out["native_pass_s"] = time.perf_counter() - t
+    # refine_frame on the card and on the CPU side by side (the lattice
+    # releases the GIL), on the soft annotation with colour features; and the
+    # card's pseudo-label of the export (ViT keys) against the CPU's.
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(semantic_constraints.refine_frame, d, img, m, None,
+                            crf_engine="native")
+                for d, m in ((colour_gpu, soft_gt), (colour_cpu, soft_gt),
+                             (FixedFeatures(dino_cpu, feats_cpu), mask))]
+        card_gt_pl, cpu_gt_pl, cpu_pl = (j.result() for j in jobs)
+    card_pl = read_image(os.path.join(pl_dir, f"pred_seg_{seqs[0]}_00000_0000000.png"), None)
+    holds["refine_native_differ"] = max(
+        float(((cpu_pl * 255.0).astype(np.uint8) != card_pl).mean()),
+        float((card_gt_pl != cpu_gt_pl).mean()))
+    out["refine_gt_fg_share"] = float((card_gt_pl > 0.5).mean())
+    small = resize_bilinear(torch.from_numpy(img), (48, 86)).numpy()
+    small_mask = resize_bilinear(torch.from_numpy(soft_gt)[..., None], (48, 86))[..., 0].numpy()
+    ck.reset_launch_counts()
+    att_gpu = semantic_constraints.refine_frame(colour_gpu, small, small_mask, None,
+                                                crf_engine="attention")
+    small_launches = ck.LAUNCHES["crf_filter"]
+    att_cpu = semantic_constraints.refine_frame(colour_cpu, small, small_mask, None,
+                                                crf_engine="attention")
+    holds["refine_attention_differ"] = float((att_gpu != att_cpu).mean())
+    ck.reset_launch_counts()
+    t = time.perf_counter()
+    att_full = semantic_constraints.refine_frame(dino_gpu, img, mask, None,
+                                                 crf_engine="attention")
+    out["attention_frame_s"] = time.perf_counter() - t
+    out["attention_launches"] = {"frame_48x86": small_launches, "frame_480p": ck.LAUNCHES["crf_filter"]}
+    out["attention_vs_native_agree"] = float(((att_full > 0.5) == (card_pl > 127)).mean())
+    if not small_launches or not ck.LAUNCHES["crf_filter"]:
+        failures.append(f"attention engine: crf_filter launches {out['attention_launches']}")
+    # J and F of the pipeline's masks, and of each annotation against the
+    # next frame's (the object moved: both far from 0 and 1).
+    jf = []
+    for seq in seqs:
+        ids = [f"{t:05d}" for t in range(PIPE_FRAMES)]
+        gt = davis.read_gt_masks(data, seq, ids, False)[0]
+        pred = davis.read_result_masks(crf_dir, seq, ids, 0, (gt.shape[-1], gt.shape[-2]))[0]
+        for p, g in ((pred, gt), (gt[1:], gt[:-1])):
+            ref = np.array([jf_numpy(a, b) for a, b in zip(p, g)])
+            jf.append(np.abs(davis.jaccard(g, p) - ref[:, 0]).max())
+            jf.append(np.abs(davis.boundary_f_frames(p, g) - ref[:, 1]).max())
+            out.setdefault("davis_jf_ref_means", []).append(ref.mean(0).tolist())
+    holds["davis_jf"] = float(max(jf))
+    t = time.perf_counter()
+    davis.evaluate(data, crf_dir, "val")
+    out["davis_frames_per_s"] = n_frames / (time.perf_counter() - t)
+    times["holds"] = time.perf_counter() - t_holds
+    for name, value in holds.items():
+        log(f"stage2 hold {name}: {value:.3e} (limit {lim[name]:.0e})")
+        if not value <= lim[name]:
+            failures.append(f"{name} {value:.3e} > {lim[name]:.0e}")
+    out["holds"], out["limits"], out["stage_s"] = holds, dict(lim), times
+    out["pipeline_s"] = pipeline_s
+    # The stage-2.2 step outside the loop, at the recipe's batch of 16 pairs.
+    out["stage2_2_bare_step_ms"] = bare_step_ms(torch, state, 16, pl=True)
+    del state
+    total = sum(times.values())
+    log("stage2_pipeline: " + ", ".join(f"{k} {v:.1f} s ({v / total:.0%})" for k, v in
+                                        times.items()) + f"; {total:.1f} s in all")
+    s22 = out["stage2_2"]
+    log(f"stage2_pipeline: MAA channel {channel}; {n_pl} pseudo-labels; stage 2.2 step "
+        f"{s22.get('step_ms', float('nan')):.1f} ms through the loop (steps 2+), "
+        f"{s22.get('steady_frames_per_s', float('nan')):.1f} frames/s steady, bare step "
+        f"{out['stage2_2_bare_step_ms']:.1f} ms, peak {out['stage2_2_peak_gib']:.2f} GiB, "
+        f"loss_pl {pl_losses}; test mIoU {out['test_miou']:.4f}; DAVIS {out['davis']}; "
+        f"FBMS59 {out['fbms']}; crf_pp device {out['crf_pp_device_launches']} launches, "
+        f"agrees with native on {out['crf_pp_device_vs_native_agree']:.4f} of the frame")
+    log(f"stage2_pipeline: crf_filter at B=1 N={r['n']} D=5: {r['ms']:.2f} ms (bound "
+        f"{r['bound_ms']:.2f} ms by {r['bound_unit']}, {r['bound_ms'] / r['ms']:.0%} of it), "
+        f"rows vs plain {r['max_abs_err']:.2e}, vs float64 {r['max_abs_err_f64']:.2e} (plain "
+        f"{r['plain_err_f64']:.2e}); SDPA f32 {r['library_ms']:.1f} ms; NCut card vs CPU max "
+        f"{out['ncut_max_abs']:.2e} (grid mean {out['ncut_grid_mean']:.3f}); refine_frame on the "
+        f"soft annotation: foreground {out['refine_gt_fg_share']:.3f}; J/F reference means "
+        f"{out['davis_jf_ref_means']}; DINO "
+        f"{out['dino_ms']:.1f} ms a frame (CPU {times['hold_dino_cpu']:.1f} s), NCut "
+        f"{out['ncut_ms']:.1f} ms, native lattice {out['native_pass_s']:.2f} s a pass (host), "
+        f"attention engine {out['attention_frame_s']:.2f} s a frame "
+        f"({out['attention_launches']} launches; agrees with native on "
+        f"{out['attention_vs_native_agree']:.4f}); DAVIS evaluator "
+        f"{out['davis_frames_per_s']:.1f} frames/s")
+    out["davis_printed"] = printed.getvalue().strip().splitlines()[:2]
+    return out, failures
+
+
+def phase_stage2_pipeline(torch, wk, ck, crf_ops) -> dict:
+    """``stage2_pipeline_readings`` on the card; raises on any failed check."""
+    out, failures = stage2_pipeline_readings(torch, wk, ck, crf_ops)
+    if failures:
+        raise RuntimeError("stage2_pipeline: " + "; ".join(failures))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2115,6 +2575,16 @@ def main() -> int:
     train_cli = phase_train_cli(torch, wk, ck)
     phases["train_cli"] = time.perf_counter() - t0
 
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stage2 = phase_stage2_pipeline(torch, wk, ck, crf_ops)
+    phases["stage2_pipeline"] = time.perf_counter() - t0
+    r480 = stage2["crf_480p"]
+    rows[-1].update({"launches_stage2_pipeline": stage2["crf_pp_device_launches"],
+                     "ms_480p": r480["ms"], "bound_ms_480p": r480["bound_ms"],
+                     "bound_by_480p": r480["bound_by"], "library_ms_480p": r480["library_ms"],
+                     "max_abs_err_480p": r480["max_abs_err"]})
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     phases["total"] = time.perf_counter() - t_all
@@ -2130,6 +2600,7 @@ def main() -> int:
                       "stage2_1": stage2_1, "rcf_reference": rcf_errs,
                       "rcf_crf_reference": crf_errs, "phases_s": phases}), flush=True)
     print(json.dumps({"train_cli": train_cli}), flush=True)
+    print(json.dumps({"stage2_pipeline": stage2}), flush=True)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: no output",
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

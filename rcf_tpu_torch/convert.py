@@ -9,8 +9,10 @@ names. ``rcf_state_from_jax(variables, ema=None)`` does the same for an
 RCF model (``backbone2``, ``decode_head`` from JAX's ``flow_head``,
 ``decode_head2``, ``decode_head3``, and the EMA copies ``backbone2_ema``,
 ``decode_head2_ema`` from JAX's ``ema_params``/``ema_stats``). The
-per-module converters serve the module tests. This module imports no
-JAX: the caller hands it plain arrays.
+per-module converters serve the module tests; ``dino_state_from_jax``
+maps a JAX ``DinoViT``'s params to the DINO-keyed state dict of the
+port's ``nn/dino_vit.py``. This module imports no JAX: the caller hands
+it plain arrays.
 """
 
 from __future__ import annotations
@@ -136,4 +138,30 @@ def rcf_state_from_jax(variables: dict, ema: dict | None = None) -> dict:
                              resnet_state_from_jax(ep["backbone2"], es["backbone2"])))
         out.update(_prefixed("decode_head2_ema",
                              fcn_head_state_from_jax(ep["decode_head2"], es["decode_head2"])))
+    return out
+
+
+def dino_state_from_jax(params: dict, depth: int) -> dict:
+    """The port's ``DinoViT`` state dict (DINO's own keys) from the JAX
+    ``DinoViT`` params: Dense kernels [in, out] -> Linear [out, in], the patch
+    conv HWIO -> OIHW, LayerNorm scale -> weight."""
+    def ln(out: dict, prefix: str, p: dict) -> None:
+        out[f"{prefix}.weight"] = _t(p["scale"])
+        out[f"{prefix}.bias"] = _t(p["bias"])
+
+    def dense(out: dict, prefix: str, p: dict) -> None:
+        out[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+        out[f"{prefix}.bias"] = _t(p["bias"])
+
+    out = {"cls_token": _t(params["cls_token"]), "pos_embed": _t(params["pos_embed"])}
+    _conv(out, "patch_embed.proj", params["patch_embed"])
+    for i in range(depth):
+        blk, pb = params[f"block{i}"], f"blocks.{i}."
+        ln(out, pb + "norm1", blk["norm1"])
+        ln(out, pb + "norm2", blk["norm2"])
+        dense(out, pb + "attn.qkv", blk["qkv"])
+        dense(out, pb + "attn.proj", blk["proj"])
+        dense(out, pb + "mlp.fc1", blk["fc1"])
+        dense(out, pb + "mlp.fc2", blk["fc2"])
+    ln(out, "norm", params["norm"])
     return out

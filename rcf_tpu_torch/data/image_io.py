@@ -20,6 +20,10 @@ parallel. A failed build raises: there is no slower fallback.
   or 8 bits; every filter; not interlaced. ``convert("RGB")`` drops alpha
   and expands gray and palettes; ``convert("L")`` takes ITU-R 601-2 luma
   in PIL's fixed point, ``(19595 R + 38470 G + 7471 B + 0x8000) >> 16``.
+
+``mode=None`` reads a file as stored, as ``np.array(PIL.Image.open(path))``:
+a palette PNG gives its indices, gray its values (1-bit gray as bool),
+gray + alpha ``[H, W, 2]``, RGBA ``[H, W, 4]``, a JPEG ``L`` or ``RGB``.
 """
 
 from __future__ import annotations
@@ -108,9 +112,12 @@ def jpeg_info(data: bytes) -> tuple[int, int, int]:
     return w.value, h.value, c.value
 
 
-def decode_jpeg(data: bytes, mode: str = "RGB") -> np.ndarray:
-    """A JPEG's pixels as uint8 [H, W, 3] (``mode="RGB"``) or [H, W] (``"L"``)."""
+def decode_jpeg(data: bytes, mode: str | None = "RGB") -> np.ndarray:
+    """A JPEG's pixels as uint8 [H, W, 3] (``mode="RGB"``) or [H, W] (``"L"``);
+    ``None``: as stored (``L`` for one component, else ``RGB``)."""
     w, h, comps = jpeg_info(data)
+    if mode is None:
+        mode = "L" if comps == 1 else "RGB"
     channels = 1 if (mode == "L" and comps == 1) else 3
     out = np.empty((h, w, channels), np.uint8)
     err = ctypes.create_string_buffer(_ERR_LEN)
@@ -163,8 +170,9 @@ def _png_chunks(data: bytes):
             return
 
 
-def decode_png(data: bytes, mode: str = "RGB") -> np.ndarray:
-    """A PNG's pixels as uint8 [H, W, 3] (``mode="RGB"``) or [H, W] (``"L"``)."""
+def decode_png(data: bytes, mode: str | None = "RGB") -> np.ndarray:
+    """A PNG's pixels as uint8 [H, W, 3] (``mode="RGB"``) or [H, W] (``"L"``);
+    ``None``: as stored (see the module note)."""
     if not data.startswith(_PNG_SIG):
         raise ValueError("not a PNG")
     ihdr, palette, idat = None, None, []
@@ -201,6 +209,10 @@ def decode_png(data: bytes, mode: str = "RGB") -> np.ndarray:
         px = px[..., None]
     else:
         px = rows[:, : w * ch].reshape(h, w, ch)
+    if mode is None:
+        if ctype == 0 and depth == 1:
+            return px[..., 0] > 0  # PIL's mode "1"
+        return np.ascontiguousarray(px[..., 0] if ch == 1 else px)
     if ctype == 3:
         if palette is None:
             raise ValueError("palette PNG without PLTE")
@@ -263,8 +275,9 @@ def encode_png(img: np.ndarray, level: int = 6) -> bytes:
 # ---------------------------------------------------------------------------
 
 
-def read_image(path: str, mode: str = "RGB") -> np.ndarray:
-    """A JPEG or PNG file as ``np.asarray(Image.open(path).convert(mode))``."""
+def read_image(path: str, mode: str | None = "RGB") -> np.ndarray:
+    """A JPEG or PNG file as ``np.asarray(Image.open(path).convert(mode))``;
+    ``mode=None``: as stored, ``np.array(Image.open(path))``."""
     with open(path, "rb") as f:
         data = f.read()
     try:

@@ -179,6 +179,15 @@ def mean_field(rgb_u8: torch.Tensor, masks: torch.Tensor, params: CRFParams,
     return q1.reshape(b, h, w), iters
 
 
+def crf_soft_single(rgb_u8: torch.Tensor, mask: torch.Tensor, params: CRFParams,
+                    chunk: int = 1024, xy_scale=(1.0, 1.0)) -> torch.Tensor:
+    """One image, as the JAX package's ``crf_soft_single`` gives the stage-2
+    tools: uint8 [H, W, 3] and a soft mask [H, W] -> the binary MAP [H, W] f32,
+    through the batched ``mean_field`` (B = 1; ``crf_filter`` on the card)."""
+    q1, _ = mean_field(rgb_u8[None], mask[None].float(), params, xy_scale, chunk)
+    return (q1[0] > 0.5).float()
+
+
 def make_crf_fn(resolution=None, chunk: int = 1024, engine: str = "attention", **kwargs):
     """Batched CRF: (normalized frames [N, H, W, 3], masks [N, H, W]) -> [N, H, W] f32.
 

@@ -50,7 +50,7 @@ def test_port_imports_without_jax_and_its_dependencies():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 48  # every module of the package was imported
+    assert int(proc.stdout.split()[-1]) >= 60  # every module of the package was imported
 
 
 _CODEC = _IMPORT_ALL.split("import rcf_tpu_torch")[0] + textwrap.dedent("""
@@ -72,6 +72,37 @@ def test_codec_builds_and_decodes_without_pil_or_cv2():
     """The image codec (host C++, built at first use) writes and reads a PNG
     and a JPEG with yaml, cv2, PIL and JAX blocked."""
     proc = subprocess.run([sys.executable, "-c", _CODEC], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split()[-1] == "ok"
+
+
+STAGE2_TOOLS = ("grouping.maa", "grouping.semantic_constraints", "eval.crf_pp", "eval.davis",
+                "eval.stv2_fbms")
+
+_HELP = _IMPORT_ALL.split("import rcf_tpu_torch")[0] + textwrap.dedent("""
+    import contextlib, io, runpy
+
+    for name in TOOLS:
+        sys.argv = [name, "--help"]
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                runpy.run_module("rcf_tpu_torch." + name, run_name="__main__")
+        except SystemExit as exc:
+            assert exc.code == 0, (name, exc.code)
+        assert out.getvalue().startswith("usage:"), (name, out.getvalue()[:200])
+    leaked = sorted(m for m in sys.modules if blocked(m))
+    assert not leaked, leaked
+    print("help ok")
+""")
+
+
+def test_stage2_tools_answer_help_without_jax_yaml_cv2_or_pil():
+    """``python -m rcf_tpu_torch.<tool> --help`` of the five stage-2 entry points
+    with jax, yaml, cv2 and PIL blocked."""
+    script = f"TOOLS = {STAGE2_TOOLS!r}\n" + _HELP
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.split()[-1] == "ok"
