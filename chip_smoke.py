@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (``rcf_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --data-parallel-cards N   # N >= 2 cards: data_parallel on NCCL
 
 Phases, each timed:
 
@@ -146,15 +147,43 @@ Phases, each timed:
                 attention engine (48x86), and the DAVIS J/F in torch on the
                 card against numpy; the timings of each stage, DINO, NCut, a
                 native pass, the attention engine's frame and the evaluator.
+15. data_parallel - the port's ranks (``rcf_tpu_torch/parallel``): (a) two
+                ranks on the one card, each its own process
+                (``--data-parallel-rank``), on gloo passed explicitly (NCCL
+                refuses two ranks on one card), against this process with the
+                whole batch, TF32 off, f32, dropout on: one step of the DAVIS
+                stage-1 recipe and of its stage 2.1 (CRF on) at full width, 2
+                pairs of 128^2 a rank, and of the AMD recipe at flow_size 64x64;
+                the losses, the averaged gradients, the BN running statistics
+                and the EMA against each case's ``DP_LIMITS``, beside a noise
+                control (world 1 against world 1 with 1e-7 of noise on the
+                frames), each rank's state equal to rank 0's, crf_filter and
+                the warps launched on both ranks; (b) the same two ranks run 3
+                steps of the DAVIS stage-1 recipe at its batch (8 pairs of
+                384^2 a rank) from rank 0's weights: step ms (step 2), peak
+                memory, gradient bytes and the collectives' share of step 3,
+                timed with the card synchronized around each (one card
+                through host memory: not a multi-card figure), every
+                rank's whole state against rank 0's, then save ``last`` at
+                world 2; (c) ``cli.main`` with ``RCF_DIST=1`` on NCCL at world
+                1 resumes that ``last`` and runs epoch 1 of the synthetic set
+                of ``train_cli``.
 
 Prints a ``{"kernels": [...]}`` line, a line with the AMD, stage-1 and
 stage-2.1 step times (f32 and bf16), the peak memory, the stage-2.1 mean
 field's iterations and syncs, the reference readings and the phase
 seconds, a ``{"train_cli": ...}`` line, a ``{"stage2_pipeline": ...}`` line,
-the card's name and power limit,
+a ``{"data_parallel": ...}`` line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed phase raises: the exit code is then not 0 and no result line is
-printed. Without a CUDA device, or without the package beside it, it exits
+printed.
+
+``--data-parallel-cards N`` runs the data_parallel phase alone on N >= 2
+cards, one rank a card on NCCL, at 2 ranks and at N: (a) and (b) as above
+(at N ranks, 16 / N pairs a rank in (b), the recipe's batch), and (c) as
+a launcher runs it, one ``python -m rcf_tpu_torch.cli`` a rank; it prints
+a ``{"data_parallel_cards": ...}`` line, every card's name and power limit
+and the same last line. Without a CUDA device, or without the package beside it, it exits
 with an error at once.
 """
 
@@ -2474,6 +2503,581 @@ def phase_stage2_pipeline(torch, wk, ck, crf_ops) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# data_parallel: the port's ranks (rcf_tpu_torch/parallel) on the one card.
+# Two ranks, each its own process (``chip_smoke.py --data-parallel-rank``),
+# on gloo with ``backend="gloo"`` passed explicitly (NCCL refuses two ranks
+# on one card), against one process with the whole batch; then three steps
+# of the DAVIS recipe at its full batch over the two ranks; then the
+# launcher path of ``cli.main`` on NCCL at world 1, resuming the two ranks'
+# checkpoint. Two ranks on one card share its time and memory and exchange
+# through host memory: no reading here is a multi-card figure.
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2
+DP_DEVICE = "cuda"
+DP_DIR = "rcf_tpu_torch/build/smoke_dp"
+DP_HW = 128        # the hold's frames: 2 pairs of 128^2 a rank (stage 1, stage 2.1)
+DP_AMD_HW = 64     # the AMD hold: 2 pairs of 64^2 a rank, flow_size 64x64
+DP_PAIRS = 16      # (b): the DAVIS recipe's global batch, split over the ranks
+DP_TIMEOUT_S = 420.0
+DP_CARDS_WAIT_S = 180.0  # ``--data-parallel-cards``: the wait for a world's ranks
+DP_NOISE = 1e-7    # the noise control: world 1 with each frame value scaled by 1 + 1e-7 N(0, 1)
+# The hold, world N against world 1 on the card, TF32 off, f32, dropout on
+# (drawn for the whole batch): every loss, relative (``loss_rel``: the worst
+# key); the averaged gradients, the largest difference over every tensor over
+# the largest |g| (``grad_rel``) and the L2 of the difference over the L2 of
+# the gradients (``grad_l2``); the BN running statistics, the EMA's among them,
+# each tensor's largest difference over its largest entry (``stats_rel``); the
+# fraction of the EMA's parameters whose increment differs from world 1's by
+# more than 0.1 of an increment (lr (1 - ema_m)) (``ema_off``).
+# These models' gradients are not smooth everywhere (ReLU, |x|, max-pool and
+# bilinear taps), and Adam's first update is lr * sign(g): a change of
+# summation order moves the gradients and the EMA as far as float noise on the
+# inputs does. The noise control, world 1 against world 1 with ``DP_NOISE`` on
+# the frames, reads that floor on the card in every run. Each case's limits sit
+# between its floor and what the planted faults read (``python3
+# tools/smoke_fault_check.py data_parallel``; H100, 2 gloo ranks): noise / sound
+# split / per-rank BN, grad_l2 stage 1 7.5e-3 / 7.3e-3 / 0.46, stage 2.1
+# 1.1e-2 / 1.05e-2 / 0.92, AMD 9.0e-4 / 1.1e-3 / 7.0e-2; AMD's grad_rel 4.0e-5
+# / 5.9e-5, and 1.7e-3 with each rank's own occlusion ratio, which its grad_l2
+# (2.0e-3) does not separate from the floor; statistics under 5.3e-6 sound,
+# 0.5-2.3 with per-rank BN; the EMA 7.3e-3 / 3.1e-3 (stage 1 / 2.1) sound,
+# 0.36-0.44 with per-rank BN; the losses under 2e-7 sound.
+DP_LIMITS = {
+    "stage1": {"loss_rel": 1e-5, "grad_rel": 5e-3, "grad_l2": 2e-2, "stats_rel": 5e-5,
+               "ema_off": 2e-2},
+    "stage2_1": {"loss_rel": 1e-5, "grad_rel": 1e-2, "grad_l2": 3e-2, "stats_rel": 5e-5,
+                 "ema_off": 1e-2},
+    "amd": {"loss_rel": 1e-5, "grad_rel": 5e-3, "grad_l2": 1e-2, "stats_rel": 1e-4,
+            "ema_off": 1e-2},
+    "unflow": {"loss_rel": 1e-5, "grad_rel": 1e-4},
+}
+DP_UNFLOW_SIZES = ((64, 96), (32, 48), (16, 24), (8, 12), (4, 6))  # finest first
+
+
+def dp_cases(torch, world: int = DP_WORLD) -> dict:
+    """The hold's three steps, made on the CPU from seeds: the DAVIS stage-1
+    recipe at full width (EMA on, masks scaled with the frames), its stage 2.1
+    (the CRF on a grid scaled with the frames, object channel 0), and the AMD
+    recipe at flow_size 64x64; each batch 2 pairs a rank."""
+    gen = torch.Generator().manual_seed(11)
+    m = RCF_RECIPES["rcf"]["model_kwargs"]["mask_size"][0] * DP_HW // H
+    s1 = rcf_train_cfg("rcf", mask_size=(m, m))
+    crf = copy.deepcopy(RCF_CRF_RECIPES["rcf"])
+    crf_kw = crf["model_kwargs"]
+    crf_kw["mask_size"] = crf_kw["decode_head"]["mask_size"] = [m, m]
+    grid = crf_kw["crf_head"]["resolution"][0] * DP_HW // H
+    crf_kw["crf_head"]["resolution"] = [grid, grid]
+    n = 2 * world
+    return {
+        "stage1": {"amd": False, "cfg": s1, "batch": rcf_batch(torch, gen, n, DP_HW, "cpu")},
+        "stage2_1": {"amd": False, "cfg": dict(crf["train"], model_kwargs=crf_kw),
+                     "batch": rcf_crf_batch(torch, gen, n, DP_HW, "cpu")},
+        "amd": {"amd": True,
+                "cfg": dict(TRAIN_CFG, model_kwargs=amd_model_kwargs(
+                    flow_size=(DP_AMD_HW, DP_AMD_HW))),
+                "batch": {"imgs": torch.randn(n, 2, DP_AMD_HW, DP_AMD_HW, 3, generator=gen)}},
+    }
+
+
+def _noisy(torch, x):
+    """``x`` with every value scaled by 1 + DP_NOISE N(0, 1) (seeded)."""
+    return x * (1.0 + DP_NOISE * torch.randn(x.shape, generator=torch.Generator().manual_seed(12)))
+
+
+def dp_noisy(torch, case: dict) -> dict:
+    """``case`` with noise on its frames (``_noisy``)."""
+    return dict(case, batch=dict(case["batch"], imgs=_noisy(torch, case["batch"]["imgs"])))
+
+
+def dp_unflow_inputs(torch, world: int = DP_WORLD) -> dict:
+    """The occlusion-ratio hold's inputs, 2 pairs a rank: a flow pyramid
+    (``DP_UNFLOW_SIZES``) of N(0, 3^2) px flows, large enough that the
+    occlusion masks, and so the ranks' own ratios, differ; frames U(0, 1)."""
+    gen = torch.Generator().manual_seed(13)
+    n = 2 * world
+    flows = [torch.randn(n, h, w, 4, generator=gen) * 3.0 for h, w in DP_UNFLOW_SIZES]
+    h, w = DP_UNFLOW_SIZES[0]
+    im1, im2 = (torch.rand(n, h, w, 3, generator=gen) for _ in range(2))
+    return {"flows": flows, "im1": im1, "im2": im2}
+
+
+def dp_unflow(torch, inp: dict, dev: str) -> dict:
+    """The AMD recipe's unFlow loss (backward-density occlusion: the warps and
+    the splat) on this rank's rows, and its gradient in the finest flow over
+    the world (the rank's share of the whole batch's), on the CPU."""
+    from rcf_tpu_torch.losses.unflow import UnFlowLossCfg, unflow_loss
+    from rcf_tpu_torch.parallel import dist
+
+    w, r = dist.world(), dist.rank()
+    flows = [f[r::w].to(dev).requires_grad_(True) for f in inp["flows"]]
+    loss = unflow_loss(flows, inp["im1"][r::w].to(dev), inp["im2"][r::w].to(dev),
+                       UnFlowLossCfg())[0]
+    loss.backward()
+    return {"loss": loss.item(), "dflow0": flows[0].grad.cpu() / w}
+
+
+def dp_unflow_readings(ours: dict, ref: dict, rank: int, world: int) -> dict:
+    """A rank's occlusion-ratio hold against world 1, keyed as ``DP_LIMITS``:
+    the loss, relative, and the gradient of its rows over the largest |g|."""
+    g = ref["dflow0"]
+    return {"loss_rel": abs(ours["loss"] - ref["loss"]) / abs(ref["loss"]),
+            "grad_rel": float((ours["dflow0"] - g[rank::world]).abs().max() / g.abs().max())}
+
+
+def dp_step(torch, case: dict, dev: str) -> dict:
+    """One train step of a hold case on this rank's rows (every row at world 1),
+    TF32 off: the losses, the averaged gradients, the BN running statistics and
+    the EMA after it, on the CPU, and the kernels' launches in the step."""
+    from rcf_tpu_torch.models import build_model
+    from rcf_tpu_torch.models.amd import build_amd_model
+    from rcf_tpu_torch.ops import crf_kernels as ck
+    from rcf_tpu_torch.ops import warp_kernels as wk
+    from rcf_tpu_torch.parallel import dist
+    from rcf_tpu_torch.train import create_train_state, make_train_step, maybe_crf_fn, step_seed
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        build = build_amd_model if case["amd"] else build_model
+        model = build(case["cfg"]["model_kwargs"], device=dev, seed=0)
+        state = create_train_state(case["cfg"], model, steps_per_epoch=STEPS_PER_EPOCH)
+        grads: dict = {}
+        adam = state.optimizer.step
+
+        def read_grads(*args, **kwargs):
+            grads.update({n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()
+                          if p.grad is not None})
+            return adam(*args, **kwargs)
+
+        state.optimizer.step = read_grads
+        w, r = dist.world(), dist.rank()
+        batch = {k: v[r::w].to(dev) if isinstance(v, torch.Tensor) else v
+                 for k, v in case["batch"].items()}
+        gen = torch.Generator(device=dev).manual_seed(step_seed(0, 0))
+        step = make_train_step(crf_fn=maybe_crf_fn(model))
+        ema0 = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+                if "_ema." in k}
+        wk.reset_launch_counts()
+        ck.reset_launch_counts()
+        losses = step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        launches = {**wk.LAUNCHES, **ck.LAUNCHES}
+        sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        return {"losses": {k: v.item() for k, v in losses.items()}, "grads": grads,
+                "stats": {k: v for k, v in sd.items() if "running" in k},
+                "ema_inc": {k: v - ema0[k] for k, v in sd.items()
+                            if "_ema." in k and "running" not in k},
+                "ema_step": state.schedule(0) * (1.0 - (state.ema_m or 0.0)),
+                "launches": launches, "state": sd}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _tensor_rel(ours: dict, ref: dict) -> float:
+    """The worst tensor's largest difference over its largest entry."""
+    worst = 0.0
+    for k, t in ref.items():
+        scale = float(t.abs().max())
+        if scale > 0:
+            worst = max(worst, float((ours[k] - t).abs().max()) / scale)
+    return worst
+
+
+def dp_readings(ours: dict, ref: dict) -> dict:
+    """A rank's hold against world 1, keyed as ``DP_LIMITS``."""
+    g, gr = ours["grads"], ref["grads"]
+    gmax = max(float(t.abs().max()) for t in gr.values())
+    diff2 = sum(float((g[k] - t).double().pow(2).sum()) for k, t in gr.items())
+    norm2 = sum(float(t.double().pow(2).sum()) for t in gr.values())
+    inc, inc_ref = ours["ema_inc"], ref["ema_inc"]
+    off = sum(int(((inc[k] - t).abs() > 0.1 * ref["ema_step"]).sum()) for k, t in inc_ref.items())
+    return {
+        "loss_rel": max(abs(ours["losses"][k] - v) / abs(v) for k, v in ref["losses"].items()),
+        "grad_rel": max(float((g[k] - t).abs().max()) for k, t in gr.items()) / gmax,
+        "grad_l2": math.sqrt(diff2 / norm2),
+        "stats_rel": _tensor_rel(ours["stats"], ref["stats"]),
+        "ema_off": off / max(sum(t.numel() for t in inc_ref.values()), 1),
+    }
+
+
+def _state_flat(torch, state, dev):
+    """The train state as one f32 vector: the model's parameters and buffers, the
+    optimizer's tensors (moments and step counts) and the step."""
+    opt = [v for g in state.optimizer.param_groups for p in g["params"]
+           for _, v in sorted(state.optimizer.state.get(p, {}).items())
+           if isinstance(v, torch.Tensor)]
+    parts = [t.detach().float().flatten().to(dev) for t in [*state.model.state_dict().values(),
+                                                            *opt]]
+    return torch.cat(parts + [torch.tensor([float(state.step)], device=dev)]), len(opt)
+
+
+def dp_full_width(torch, dev: str, ckpt_dir: str, pairs: int) -> dict:
+    """Three steps of the DAVIS stage-1 recipe (its YAML's model, no EMA) at its
+    global batch, ``pairs`` pairs of 384^2 frames and flows a rank, from rank
+    0's weights: step 2 timed as it runs, step 3 with the card synchronized
+    around each collective to time them (which stalls the host's launches, so
+    step 3 reads slower). Then every rank's whole state (optimizer included)
+    against rank 0's, ``broadcast_state`` once more (it must move nothing),
+    and ``last`` saved through ``train/checkpoint.py``."""
+    import torch.distributed as tdist
+
+    from rcf_tpu_torch.models import build_model
+    from rcf_tpu_torch.parallel import dist
+    from rcf_tpu_torch.train import create_train_state, make_train_step, step_seed
+    from rcf_tpu_torch.train.checkpoint import save_checkpoint
+
+    cfg = dict(RCF_RECIPES["rcf"]["train"], model_kwargs=RCF_RECIPES["rcf"]["model_kwargs"])
+    model = build_model(cfg["model_kwargs"], device=dev, seed=dist.rank())
+    state = create_train_state(cfg, model, steps_per_epoch=3)
+    dist.broadcast_state(state)  # every rank starts from rank 0's weights
+    gen = torch.Generator(device=dev).manual_seed(100 + dist.rank())
+    batch = rcf_batch(torch, gen, pairs, H, dev)
+    step = make_train_step()
+    spent, calls = [0.0], [0]
+    all_reduce = tdist.all_reduce
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return all_reduce(*args, **kwargs)
+        finally:
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            calls[0] += 1
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(STEPS):
+        gen.manual_seed(step_seed(0, i))
+        if i == STEPS - 1:
+            tdist.all_reduce = timed
+        try:
+            t0 = time.perf_counter()
+            losses = step(state, batch, generator=gen)
+            vals = {k: v.item() for k, v in losses.items()}
+            times.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            tdist.all_reduce = all_reduce
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise RuntimeError(f"data_parallel full width: non-finite loss {vals}")
+    grad_bytes = sum(p.numel() * p.element_size() for p in model.parameters() if p.requires_grad)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    flat, n_opt = _state_flat(torch, state, dev)
+    theirs = flat.clone()
+    dist.broadcast_([theirs])
+    dist.broadcast_state(state)
+    again, _ = _state_flat(torch, state, dev)
+    save_checkpoint(ckpt_dir, "last", state)
+    return {"step_ms": sum(times[1:-1]) / len(times[1:-1]), "step_ms_all": times,
+            "state_vs_rank0": float((flat - theirs).abs().max()),
+            "rebroadcast_moved": float((again - flat).abs().max()), "optimizer_tensors": n_opt,
+            "step_ms_synchronized": times[-1], "all_reduce_share": spent[0] * 1e3 / times[-1],
+            "all_reduces_per_step": calls[0], "peak_gib": peak, "pairs": pairs,
+            "grad_bytes": grad_bytes, "losses": vals, "step": state.step}
+
+
+def dp_rank_main(torch, rank: int, work: str) -> int:
+    """One rank of the data_parallel phase (a child process of the phase): its
+    world, backend and cards are in ``<work>/inputs.pt``."""
+    import os
+
+    from rcf_tpu_torch.parallel import dist
+
+    inp = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+    world = inp["world"]
+    os.environ.update(RCF_DIST="1", RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank if inp["cards"] > 1 else 0))
+    dev = str(dist.init_distributed(device=DP_DEVICE, backend=inp["backend"],
+                                    init_method=f"file://{os.path.abspath(work)}/rendezvous",
+                                    timeout_s=DP_TIMEOUT_S))
+    try:
+        out = {}
+        for name, case in inp["cases"].items():
+            mine = dp_step(torch, case, dev)
+            # Every rank's state must be rank 0's, bit for bit.
+            flat = torch.cat([t.float().flatten() for t in mine["state"].values()]).to(dev)
+            theirs = flat.clone()
+            dist.broadcast_([theirs])
+            out[name] = {**dp_readings(mine, inp["ref"][name]),
+                         "launches": mine["launches"], "losses": mine["losses"],
+                         "state_vs_rank0": float((flat - theirs).abs().max())}
+            del mine, flat, theirs
+            torch.cuda.empty_cache()
+        out["unflow"] = dp_unflow_readings(dp_unflow(torch, inp["unflow"], dev),
+                                           inp["ref_unflow"], rank, world)
+        out["full_width"] = dp_full_width(torch, dev, os.path.join(work, "ckpt"),
+                                          DP_PAIRS // world)
+        with open(os.path.join(work, f"out_{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.shutdown()
+    return 0
+
+
+def dp_rank_command(rank: int, work: str) -> list:
+    return [sys.executable, __file__, "--data-parallel-rank", str(rank), work]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(commands: list, logs: list, env=None, wait_s: float = DP_TIMEOUT_S) -> list:
+    """Start one process a command (output to its log) and wait for all of them
+    within ``wait_s``; kill what is left. Returns the exit codes."""
+    t0 = time.perf_counter()
+    files = [open(p, "w") for p in logs]
+    procs = [subprocess.Popen(c, stdout=f, stderr=subprocess.STDOUT,
+                              env=None if env is None else env[i])
+             for i, (c, f) in enumerate(zip(commands, files))]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, wait_s - (time.perf_counter() - t0)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+    return [p.returncode for p in procs]
+
+
+def _tails(logs: list) -> list:
+    return [open(p).read()[-2000:] for p in logs]
+
+
+def dp_ranks(torch, rank_command=dp_rank_command, world: int = DP_WORLD, backend: str = "gloo",
+             cards: int = 1, wait_s: float = DP_TIMEOUT_S) -> tuple[dict, list]:
+    """(a) the hold and (b) the full-width steps over ``world`` ranks, on gloo on
+    the one card or one card a rank (``cards`` > 1), the ranks started by
+    ``rank_command(rank, work_dir)``; the noise control beside the hold.
+    Returns the readings and the failed checks."""
+    import os
+    import shutil
+
+    work = os.path.abspath(DP_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "ckpt"))
+    failures = []
+    t0 = time.perf_counter()
+    cases = dp_cases(torch, world)
+    ref, noise = {}, {}
+    for name, case in cases.items():
+        r = dp_step(torch, case, DP_DEVICE)
+        ref[name] = {k: r[k] for k in ("losses", "grads", "stats", "ema_inc", "ema_step")}
+        noise[name] = dp_readings(dp_step(torch, dp_noisy(torch, case), DP_DEVICE), ref[name])
+        torch.cuda.empty_cache()
+    unflow = dp_unflow_inputs(torch, world)
+    ref_unflow = dp_unflow(torch, unflow, DP_DEVICE)
+    noisy = dict(unflow, im1=_noisy(torch, unflow["im1"]))
+    noise["unflow"] = dp_unflow_readings(dp_unflow(torch, noisy, DP_DEVICE), ref_unflow, 0, 1)
+    torch.save({"cases": cases, "ref": ref, "unflow": unflow, "ref_unflow": ref_unflow,
+                "world": world, "backend": backend, "cards": cards},
+               os.path.join(work, "inputs.pt"))
+    del ref
+    out = {"world": world, "backend": backend, "cards": cards, "noise": noise,
+           "world1_s": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    logs = [os.path.join(work, f"rank{r}.log") for r in range(world)]
+    rcs = _run_ranks([rank_command(r, work) for r in range(world)], logs, wait_s=wait_s)
+    out["ranks_s"] = time.perf_counter() - t0
+    if any(rc != 0 for rc in rcs):
+        raise RuntimeError(f"data_parallel: ranks exited {rcs}: {_tails(logs)}")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(work, f"out_{r}.json")) as f:
+            ranks.append(json.load(f))
+    out["hold"] = {name: [rk[name] for rk in ranks] for name in (*cases, "unflow")}
+    for name, readings in out["hold"].items():
+        lims = DP_LIMITS[name]
+        for r, reading in enumerate(readings):
+            over = [k for k, lim in lims.items() if reading[k] > lim]
+            if over:
+                failures.append(f"{name} rank {r}: {over} over {lims}: "
+                                f"{ {k: reading[k] for k in lims} }")
+            if reading.get("state_vs_rank0", 0.0) != 0.0:
+                failures.append(f"{name} rank {r}: state differs from rank 0's by "
+                                f"{reading['state_vs_rank0']}")
+    for r in range(world):
+        if out["hold"]["stage2_1"][r]["launches"]["crf_filter"] == 0:
+            failures.append(f"stage2_1 rank {r}: crf_filter never launched")
+        if any(out["hold"]["amd"][r]["launches"][k] == 0 for k in STEP_KERNELS):
+            failures.append(f"amd rank {r}: a warp kernel never launched: "
+                            f"{out['hold']['amd'][r]['launches']}")
+    out["full_width"] = [rk["full_width"] for rk in ranks]
+    for r, fw in enumerate(out["full_width"]):
+        if fw["state_vs_rank0"] != 0.0 or fw["rebroadcast_moved"] != 0.0:
+            failures.append(f"full width rank {r}: the state differs from rank 0's after "
+                            f"{STEPS} steps ({fw['state_vs_rank0']}) or moved when broadcast "
+                            f"again ({fw['rebroadcast_moved']})")
+        if fw["optimizer_tensors"] == 0:
+            failures.append(f"full width rank {r}: no optimizer state after {STEPS} steps")
+    return out, failures
+
+
+def _launcher_args(ckpt: str) -> list:
+    import os
+
+    return ["configs/rcf/rcf_stage1.yaml", "--no-test", "--opts", "data_path",
+            os.path.abspath(TRAIN_DIR), "checkpoints_dir", ckpt, "pretrained_model", "null",
+            "epochs", "2", "loss_log_interval", "1"]
+
+
+def _launcher_failures(ckpt: str, world: int) -> tuple[list, list]:
+    """The logged steps, and what is wrong: not resumed at step 3 for epoch 1,
+    or a rank's heartbeat file missing."""
+    import os
+
+    steps = [r["step"] for r in _records(ckpt) if "step" in r]
+    failures = []
+    if steps != [4, 5, 6]:
+        failures.append(f"launcher: did not resume at step 3 and run epoch 1: logged {steps}")
+    beats = [".heartbeat"] + [f".heartbeat.h{i}" for i in range(1, world)]
+    missing = [b for b in beats if not os.path.isfile(os.path.join(ckpt, b))]
+    if missing:
+        failures.append(f"launcher: heartbeat files missing: {missing}")
+    return steps, failures
+
+
+def dp_launcher(torch) -> tuple[dict, list]:
+    """(c) ``cli.main`` with ``RCF_DIST=1`` on NCCL at world 1, resuming the
+    ``last`` that (b) saved at world 2, for epoch 1 of ``train_cli``'s set."""
+    import os
+
+    import torch.distributed as tdist
+
+    from rcf_tpu_torch import cli
+
+    ckpt = os.path.join(os.path.abspath(DP_DIR), "ckpt")
+    env = {"RCF_DIST": "1", "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+    os.environ.update(env)
+    t0 = time.perf_counter()
+    try:
+        state = cli.main(_launcher_args(ckpt))
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+    steps, failures = _launcher_failures(ckpt, 1)
+    out = {"launcher_s": time.perf_counter() - t0, "step": state.step, "logged_steps": steps,
+           "group_left": not tdist.is_initialized()}
+    if state.step != 6:
+        failures.append(f"launcher: ended at step {state.step}, not 6")
+    if not out["group_left"]:
+        failures.append("launcher: the process group was not left at exit")
+    return out, failures
+
+
+def dp_launcher_ranks(world: int, wait_s: float = DP_TIMEOUT_S) -> tuple[dict, list]:
+    """(c) over ``world`` cards: one ``python -m rcf_tpu_torch.cli`` a rank with
+    ``RCF_DIST=1`` and the variables a launcher sets (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), on NCCL, resuming the
+    ``last`` that (b) saved at this world, for epoch 1 of ``train_cli``'s set."""
+    import os
+
+    work = os.path.abspath(DP_DIR)
+    ckpt = os.path.join(work, "ckpt")
+    port = str(_free_port())
+    envs = [dict(os.environ, RCF_DIST="1", RANK=str(r), WORLD_SIZE=str(world),
+                 LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
+            for r in range(world)]
+    logs = [os.path.join(work, f"launcher{r}.log") for r in range(world)]
+    t0 = time.perf_counter()
+    rcs = _run_ranks([[sys.executable, "-m", "rcf_tpu_torch.cli", *_launcher_args(ckpt)]] * world,
+                     logs, envs, wait_s)
+    out = {"launcher_s": time.perf_counter() - t0, "rcs": rcs}
+    if any(rc != 0 for rc in rcs):
+        return out, [f"launcher: ranks exited {rcs}: {_tails(logs)}"]
+    out["logged_steps"], failures = _launcher_failures(ckpt, world)
+    return out, failures
+
+
+def log_data_parallel(out: dict) -> None:
+    """The hold's readings beside their limits and the noise control, and (b)."""
+    world, cards = out["world"], out["cards"]
+    for name, readings in out["hold"].items():
+        lims = DP_LIMITS[name]
+        log(f"data_parallel noise control {name} (world 1 against world 1 with {DP_NOISE:g} "
+            f"of noise on the frames): " + ", ".join(f"{k} {out['noise'][name][k]:.3e}"
+                                                     for k in lims))
+        for r, reading in enumerate(readings):
+            log(f"data_parallel hold {name} world {world} rank {r}: " + ", ".join(
+                f"{k} {reading[k]:.3e} (limit {lim:g})" for k, lim in lims.items())
+                + f"; launches {reading.get('launches', 'not counted')}")
+    where = (f"{world} gloo ranks on one card through host memory, not a multi-card figure"
+             if cards == 1 else f"{world} {out['backend']} ranks, one card each")
+    for r, fw in enumerate(out["full_width"]):
+        log(f"data_parallel full width rank {r} ({where}; DAVIS stage 1, {fw['pairs']} pairs of "
+            f"384^2 a rank, TF32 convs): step {fw['step_ms']:.1f} ms (steps 2-{STEPS - 1}), peak "
+            f"{fw['peak_gib']:.2f} GiB, gradients {fw['grad_bytes'] / 2**20:.1f} MiB a step, "
+            f"{fw['all_reduces_per_step']} all-reduces a step, collectives "
+            f"{100 * fw['all_reduce_share']:.1f}% of step {STEPS} "
+            f"({fw['step_ms_synchronized']:.1f} ms with the card synchronized around each)")
+
+
+def phase_data_parallel(torch) -> dict:
+    """``dp_ranks`` and ``dp_launcher`` on the card; raises on any failed check."""
+    out, failures = dp_ranks(torch)
+    out["launcher"], more = dp_launcher(torch)
+    failures += more
+    log_data_parallel(out)
+    if failures:
+        raise RuntimeError("data_parallel: " + "; ".join(failures))
+    return out
+
+
+def data_parallel_cards_main(torch, wk, ck, cards: int) -> int:
+    """``--data-parallel-cards N``: the data_parallel phase on NCCL, one card a
+    rank, at 2 ranks and at N: (a) and (b) as in the one-card run, and (c) as
+    a launcher runs it, one ``python -m rcf_tpu_torch.cli`` a rank."""
+    import os
+    import shutil
+
+    if torch.cuda.device_count() < cards:
+        print(f"chip_smoke: {cards} cards asked for, {torch.cuda.device_count()} visible",
+              file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(wk.build), pool.submit(ck.build)]
+        sos = [b.result() for b in builds]
+    log(f"build: {time.perf_counter() - t0:.1f} s -> {sos}")
+    root = os.path.abspath(TRAIN_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    write_synthetic_davis(root)
+    out, failures = {}, []
+    for world in sorted({2, cards}):
+        t0 = time.perf_counter()
+        readings, fails = dp_ranks(torch, world=world, backend="nccl", cards=world,
+                                   wait_s=DP_CARDS_WAIT_S)
+        readings["launcher"], more = dp_launcher_ranks(world, DP_CARDS_WAIT_S)
+        readings["phase_s"] = time.perf_counter() - t0
+        log_data_parallel(readings)
+        log(f"data_parallel launcher world {world}: {readings['launcher']}")
+        failures += [f"world {world}: {f}" for f in fails + more]
+        out[world] = readings
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    if failures:
+        raise RuntimeError("data_parallel: " + "; ".join(failures))
+    print(json.dumps({"data_parallel_cards": out}), flush=True)
+    print(smi.replace("\n", "; "), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2488,6 +3092,10 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--data-parallel-rank"]:
+        return dp_rank_main(torch, int(sys.argv[2]), sys.argv[3])
+    if sys.argv[1:2] == ["--data-parallel-cards"]:
+        return data_parallel_cards_main(torch, wk, ck, int(sys.argv[2]))
 
     phases = {}
     t_all = time.perf_counter()
@@ -2585,6 +3193,11 @@ def main() -> int:
                      "bound_by_480p": r480["bound_by"], "library_ms_480p": r480["library_ms"],
                      "max_abs_err_480p": r480["max_abs_err"]})
 
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    data_parallel = phase_data_parallel(torch)
+    phases["data_parallel"] = time.perf_counter() - t0
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     phases["total"] = time.perf_counter() - t_all
@@ -2601,6 +3214,7 @@ def main() -> int:
                       "rcf_crf_reference": crf_errs, "phases_s": phases}), flush=True)
     print(json.dumps({"train_cli": train_cli}), flush=True)
     print(json.dumps({"stage2_pipeline": stage2}), flush=True)
+    print(json.dumps({"data_parallel": data_parallel}), flush=True)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: no output",
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

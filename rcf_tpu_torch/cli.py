@@ -9,6 +9,14 @@
 Runs on the CUDA card (``train/loop.py::run``) and raises without one;
 ``--print-config`` needs no card and prints the resolved config as block
 YAML (``yaml_subset.dump``).
+
+On several cards, one process a card, as the JAX package is launched:
+``RCF_COORDINATOR=host:port RCF_NUM_PROCESSES=N RCF_PROCESS_ID=i
+RCF_LOCAL_DEVICE_IDS=<card>``, or ``RCF_DIST=1`` under a launcher that
+sets ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``/``MASTER_ADDR``/``MASTER_PORT``
+(``torchrun --nproc-per-node N -m rcf_tpu_torch.cli ...`` with
+``RCF_DIST=1``). The process group (NCCL) is joined before anything
+touches the card and left at exit.
 """
 
 from __future__ import annotations
@@ -19,13 +27,14 @@ import sys
 
 from . import yaml_subset
 from .config import load_config
+from .parallel import dist
 from .utils import get_logger, set_loglevel
 
 logger = get_logger()
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    parser = argparse.ArgumentParser(description="RCF on one CUDA card: unsupervised video "
+    parser = argparse.ArgumentParser(description="RCF on CUDA cards: unsupervised video "
                                                  "segmentation")
     parser.add_argument("config", type=str, nargs="?", default="configs/rcf/rcf_stage1.yaml",
                         help="path to YAML config")
@@ -64,7 +73,14 @@ def main(argv=None):
 
     from .train.loop import run
 
-    return run(cfg, test_only=cli.test, no_test=cli.no_test)
+    join = dist.requested() and not dist.joined()
+    if join:
+        dist.init_distributed(device="cuda")
+    try:
+        return run(cfg, test_only=cli.test, no_test=cli.no_test)
+    finally:
+        if join:
+            dist.shutdown()
 
 
 if __name__ == "__main__":

@@ -46,12 +46,20 @@ _BLOCK_NAMES = {"ds_conv": "downsample.0", "ds_bn": "downsample.1"}
 
 
 def resnet_state_from_jax(params: dict, stats: dict) -> dict:
+    """A ResNet's state dict: the 7x7 stem (``conv1``, ``bn1``) or the deep stem
+    (``stem_conv{i}``, ``stem_bn{i}`` -> ``stem.{3(i-1)}``, ``stem.{3(i-1)+1}``), and
+    the blocks (``ds_conv``/``ds_bn`` -> ``downsample.{0,1}``, with or without
+    ``avg_down``'s pool)."""
     out: dict = {}
     for name, sub in params.items():
         if name == "conv1":
             _conv(out, "conv1", sub)
         elif name == "bn1":
             _bn(out, "bn1", sub, stats[name])
+        elif name.startswith("stem_conv"):
+            _conv(out, f"stem.{3 * (int(name[len('stem_conv'):]) - 1)}", sub)
+        elif name.startswith("stem_bn"):
+            _bn(out, f"stem.{3 * (int(name[len('stem_bn'):]) - 1) + 1}", sub, stats[name])
         elif name.startswith("layer"):
             stage, blk = name[len("layer"):].split("_")
             for part, leaf in sub.items():

@@ -12,8 +12,13 @@ ctypes calls and numpy release the GIL) and a small queue prefetches.
 Batches are torch tensors. With ``pin_memory`` each batch is collated in
 the producer thread into fresh page-locked tensors, so the training loop
 copies it to the card with ``non_blocking=True``; no buffer is reused, so
-none is overwritten while its copy is in flight. ``shard_index`` /
-``num_shards`` stay at 0 / 1 until the port runs on several cards.
+none is overwritten while its copy is in flight.
+
+Over several ranks the training loop passes the rank as ``shard_index``
+and the world size as ``num_shards``: rank ``r`` takes ``padded[r::world]``
+of the epoch's plan, so its local sample ``j`` of a step is the global
+sample ``j * world + r``, the plan ``parallel/dist.py::local_rows`` relies
+on to draw dropout for the whole batch.
 """
 
 from __future__ import annotations

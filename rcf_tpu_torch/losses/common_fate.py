@@ -21,6 +21,8 @@ import functools
 
 import torch
 
+from ..parallel import dist
+
 
 def promoted_einsum(equation: str, *operands: torch.Tensor) -> torch.Tensor:
     """``torch.einsum`` after promoting the operands to their common dtype, as JAX does."""
@@ -33,7 +35,8 @@ def norm_and_clamp_flow(flow: torch.Tensor, norm_flow: bool = False,
                         filter_flow_t: float | None = None) -> torch.Tensor:
     """Optionally normalize by the global abs-max, clamp, and zero small flow."""
     if norm_flow:
-        flow = flow / flow.abs().amax()
+        # The whole batch's abs-max: over several ranks, the largest of theirs.
+        flow = flow / dist.all_reduce_max(flow.abs().amax())
     if clamp_flow_t is not None:
         flow = flow.clamp(-clamp_flow_t, clamp_flow_t)
     if filter_flow_t is not None:

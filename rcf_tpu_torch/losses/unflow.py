@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from ..ops import resize_nearest
 from ..ops.warp import flow_warp, occu_mask_backward, occu_mask_bidirection
+from ..parallel import dist
 
 
 def _avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -131,7 +132,8 @@ def unflow_loss(pyramid_flows, im1, im2, cfg: UnFlowLossCfg = UnFlowLossCfg()):
             losses.append(cfg.w_ssim * ssim_dist(im_recons * occu, im_scaled * occu, cfg.ssim_sz))
         if cfg.w_ternary > 0:
             losses.append(cfg.w_ternary * ternary_dist(im_recons * occu, im_scaled * occu))
-        return sum(torch.mean(l) for l in losses) / torch.mean(occu)
+        # A ratio of batch means: over several ranks, the whole batch's ratio.
+        return dist.global_ratio(sum(torch.mean(l) for l in losses), torch.mean(occu))
 
     warp_losses, smooth_losses = [], []
     occu1_0 = occu2_0 = None

@@ -110,7 +110,7 @@ class AMDModel(nn.Module):
             raise ValueError(f"AMD takes frame pairs, got {im_num} frames")
         imgs_flat = maybe_normalize(imgs.reshape(b * im_num, *imgs.shape[2:]))
         feats = self.backbone2(imgs_flat)
-        logits = self.decode_head2(feats, generator=generator)
+        logits = self.decode_head2(feats, generator=generator, rows_per_sample=im_num)
         h, w = logits.shape[1:3]
         probs = torch.softmax(logits.reshape(b, im_num, h, w, self.mask_layer), dim=-1)
 

@@ -225,7 +225,8 @@ class RCFModel(nn.Module):
         b, im_num = imgs.shape[:2]
         imgs_flat = imgs.reshape(b * im_num, *imgs.shape[2:])
         feats = self.backbone2(maybe_normalize(imgs_flat))
-        logits = self._maybe_resize(self.decode_head2(feats, generator=generator))
+        logits = self._maybe_resize(self.decode_head2(feats, generator=generator,
+                                                      rows_per_sample=im_num))
         res_fw, res_bw = self._residuals(feats, b, im_num, generator)
 
         h, w = logits.shape[1:3]

@@ -30,6 +30,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..utils.constants import device_constant
+from ..utils.platform import resolve_device
 from ..utils.precision import full_f32
 
 
@@ -217,8 +218,11 @@ def load_weights(model: DinoViT, sd: dict) -> dict:
 
 
 def get_dino_model(arch: str, patch_size: int, checkpoint_path: str | None = None,
-                   device: torch.device | str = "cpu") -> tuple[DinoViT, dict | None]:
+                   device: torch.device | str = "cuda") -> tuple[DinoViT, dict | None]:
     """(model on ``device`` in eval mode, its loaded state dict or ``None``).
+
+    Runs on the card unless the caller passes ``device="cpu"``; a missing
+    card raises (``utils/platform.resolve_device``).
 
     The checkpoint is a local path (or ``DINO_CHECKPOINT``), read with
     ``torch.load(weights_only=True)``; without one the weights stay random
@@ -227,6 +231,7 @@ def get_dino_model(arch: str, patch_size: int, checkpoint_path: str | None = Non
     """
     if arch not in _DINO_ARCHS:
         raise NotImplementedError(f"unknown DINO arch {arch}")
+    device = resolve_device(device)
     ctor, strip = _DINO_ARCHS[arch]
     model = ctor(patch_size=patch_size, train_grid=224 // patch_size)
     checkpoint_path = checkpoint_path or os.environ.get("DINO_CHECKPOINT") or None

@@ -9,6 +9,10 @@ Compute dtype, as Flax's module ``dtype``: parameters stay f32; a conv
 casts its input, kernel and bias to the compute dtype and returns that
 dtype; BatchNorm takes its batch statistics and normalizes in f32 (its
 running statistics stay f32) and returns the compute dtype.
+
+Cross-rank BatchNorm: with more than one rank (``parallel/dist.py``), a
+BatchNorm in training reduces its statistics over every rank's rows, as
+the reference's SyncBN and JAX's global-view ``jit`` do, in both passes.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import dist
 
 # torch BatchNorm2d defaults, as in rcf_tpu/nn/layers.py: momentum 0.1 (Flax's
 # 0.9 on the old value), eps 1e-5.
@@ -46,6 +52,45 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
+class _CrossRankBatchNorm(torch.autograd.Function):
+    """Training BatchNorm over the rows of every rank (f32 in, f32 out).
+
+    Forward: one all-reduce of [sum, sum of squares, count] per channel,
+    taken about ``shift`` (the running mean, the same on every rank) so that
+    the variance does not lose precision to a large mean. Backward: one
+    all-reduce of the channel sums of dy and dy * x_hat, for the input
+    gradient over the global batch; the weight and bias gradients stay the
+    rank's own, which the step's gradient average completes.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, shift):
+        c = x.shape[1]
+        xs = x - shift.view(1, c, 1, 1)
+        stats = torch.cat([xs.sum((0, 2, 3)), (xs * xs).sum((0, 2, 3)),
+                           x.new_full((1,), x.numel() // c)])
+        stats = dist.all_reduce_sum(stats)
+        n = stats[-1]
+        mean_s = stats[:c] / n
+        var = (stats[c:2 * c] / n - mean_s * mean_s).clamp_min(0.0)
+        mean = mean_s + shift
+        invstd = torch.rsqrt(var + BN_EPS)
+        xhat = (x - mean.view(1, c, 1, 1)) * invstd.view(1, c, 1, 1)
+        ctx.save_for_backward(xhat, weight, invstd, n)
+        ctx.mark_non_differentiable(mean, var)
+        return xhat * weight.view(1, c, 1, 1) + bias.view(1, c, 1, 1), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        xhat, weight, invstd, n = ctx.saved_tensors
+        c = dy.shape[1]
+        local = torch.cat([dy.sum((0, 2, 3)), (dy * xhat).sum((0, 2, 3))])
+        total = dist.all_reduce_sum(local)
+        dx = (dy - (total[:c] / n).view(1, c, 1, 1)
+              - xhat * (total[c:] / n).view(1, c, 1, 1)) * (weight * invstd).view(1, c, 1, 1)
+        return dx, local[c:], local[:c], None
+
+
 class BatchNorm2d(nn.Module):
     """BatchNorm over NCHW with Flax's running statistics.
 
@@ -69,6 +114,14 @@ class BatchNorm2d(nn.Module):
         if not self.training:
             return F.batch_norm(xf, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, BN_EPS).to(self.compute_dtype)
+        if dist.world() > 1:
+            y, mean, var = _CrossRankBatchNorm.apply(xf, self.weight, self.bias,
+                                                     self.running_mean)
+            with torch.no_grad():
+                m = BN_MOMENTUM
+                self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1 - m).add_(var, alpha=m)
+            return y.to(self.compute_dtype)
         # momentum=1 makes the fused op hand back the batch mean and the
         # unbiased batch variance in these scratch buffers.
         mean = torch.zeros_like(self.running_mean)
@@ -110,13 +163,14 @@ def init_weights(module: nn.Module, generator: torch.Generator | None = None) ->
 
 
 class ConvModule(nn.Module):
-    """3x3 conv (no bias) -> BN -> ReLU, the mmcv ConvModule contract (NCHW)."""
+    """kxk conv (no bias, "same" padding) -> BN -> ReLU, the mmcv ConvModule contract (NCHW)."""
 
     def __init__(self, in_channels: int, out_channels: int, dilation: int = 1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, kernel_size: int = 3, stride: int = 1):
         super().__init__()
-        self.conv = Conv2d(in_channels, out_channels, 3, padding=dilation,
-                           dilation=dilation, bias=False, compute_dtype=dtype)
+        self.conv = Conv2d(in_channels, out_channels, kernel_size, stride=stride,
+                           padding=(kernel_size - 1) // 2 * dilation, dilation=dilation,
+                           bias=False, compute_dtype=dtype)
         self.bn = BatchNorm2d(out_channels, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

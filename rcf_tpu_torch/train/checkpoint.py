@@ -24,6 +24,11 @@ Restore side, the reference's dispatch (`main.py:76-142`), for files:
   state dicts.
 
 For the port these are key renames into its own ``state_dict``.
+
+Over several ranks (``parallel/dist.py``) rank 0 alone writes, renames and
+rotates; every rank waits at a barrier after each save, so no rank reads
+``last`` while it moves, and every rank keeps the same top-k bookkeeping.
+A checkpoint does not depend on the number of ranks that wrote it.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import shutil
 
 import torch
 
+from ..parallel import dist
 from ..utils import get_logger
 
 logger = get_logger()
@@ -68,9 +74,17 @@ def save_checkpoint(ckpt_dir: str, name: str, state) -> str:
     ``last`` is rotated, never overwritten in place: the new state goes to
     ``last.tmp``, then ``last`` -> ``last.prev`` and ``last.tmp`` ->
     ``last``, so at every instant one complete checkpoint exists among
-    {last, last.tmp, last.prev} (``find_resumable``).
+    {last, last.tmp, last.prev} (``find_resumable``). Rank 0 writes; every
+    rank returns after it has.
     """
     path = os.path.abspath(os.path.join(ckpt_dir, name))
+    if dist.is_main():
+        _save(path, name, state)
+    dist.barrier()
+    return path
+
+
+def _save(path: str, name: str, state) -> None:
     rotate = name == "last" and os.path.isdir(path)
     _write(path + ".tmp" if rotate else path, _payload(state))
     if rotate:
@@ -82,7 +96,6 @@ def save_checkpoint(ckpt_dir: str, name: str, state) -> str:
         # A stale last.tmp from an interrupted swap must not outlive this
         # newer checkpoint in find_resumable's order.
         shutil.rmtree(path + ".tmp", ignore_errors=True)
-    return path
 
 
 def find_resumable(ckpt_dir: str) -> str | None:
@@ -121,6 +134,26 @@ def _require(own_keys, src: dict, prefix: str) -> dict:
     if missing:
         raise KeyError(f"checkpoint lacks {len(missing)} keys of {prefix[:-1]}, e.g. {missing[:3]}")
     return {k: src[k] for k in keys}
+
+
+def _resnet_take(own_keys, src: dict, prefix: str) -> dict:
+    """A ResNet's tensors under ``prefix`` as JAX's ``import_resnet`` reads them:
+    the 7x7 stem and every block's convs and BNs (a missing one raises), a
+    block's downsample conv and BN where ``src`` has ``downsample.0.weight``
+    (else they keep their init); a deep stem is not read."""
+    keys = [k for k in own_keys if k.startswith(prefix) and not k.startswith(prefix + "stem.")]
+    take, missing = {}, []
+    for k in keys:
+        block, sep, _ = k.partition(".downsample.")
+        if sep and block + ".downsample.0.weight" not in src:
+            continue
+        if k in src:
+            take[k] = src[k]
+        else:
+            missing.append(k)
+    if missing:
+        raise KeyError(f"checkpoint lacks {len(missing)} keys of {prefix[:-1]}, e.g. {missing[:3]}")
+    return take
 
 
 def restore_checkpoint(path: str, state, weights_only: bool = False):
@@ -192,10 +225,12 @@ class TopKKeeper:
             save_checkpoint(self.ckpt_dir, name, state)
             self.kept.append((metric, name))
             self.kept.sort(key=lambda t: -t[0])
-            for _, old in self.kept[self.k :]:
-                shutil.rmtree(os.path.join(self.ckpt_dir, old), ignore_errors=True)
-            self.kept = self.kept[: self.k]
-            self._persist()
+            evicted, self.kept = self.kept[self.k :], self.kept[: self.k]
+            if dist.is_main():  # the bookkeeping above is the same on every rank
+                for _, old in evicted:
+                    shutil.rmtree(os.path.join(self.ckpt_dir, old), ignore_errors=True)
+                self._persist()
+            dist.barrier()
 
 
 # ---------------------------------------------------------------------------
@@ -237,22 +272,22 @@ def load_pretrained(path: str, model, backbone_only: bool = False,
         sub = {k[len("model."):]: v for k, v in sd.items()}
         if drop_decode_head2:
             sub = {k: v for k, v in sub.items() if "decode_head2" not in k}
-        take = _require(own, sub, "backbone2.")
+        take = _resnet_take(own, sub, "backbone2.")
         for head in ("decode_head2.", "decode_head3.", "decode_head."):
             if any(k.startswith(head) for k in sub):
                 take.update(_require(own, sub, head))
         if any(k.startswith("backbone2_ema.") for k in sub) and getattr(model, "has_ema", False):
-            ema = _require(own, sub, "backbone2_ema.")
+            ema = _resnet_take(own, sub, "backbone2_ema.")
             if any(k.startswith("decode_head2_ema.") for k in sub):
                 ema.update(_require(own, sub, "decode_head2_ema."))
     elif example_key.startswith("module."):
         moco = {f"backbone2.{k[len('module.encoder_q.'):]}": v for k, v in sd.items()
                 if k.startswith("module.encoder_q.") and not k.startswith("module.encoder_q.fc")}
-        take = _require(own, moco, "backbone2.")
+        take = _resnet_take(own, moco, "backbone2.")
     elif "conv1.weight" in sd:  # DenseCL / torchvision
-        take = _require(own, {f"backbone2.{k}": v for k, v in sd.items()}, "backbone2.")
+        take = _resnet_take(own, {f"backbone2.{k}": v for k, v in sd.items()}, "backbone2.")
     elif "backbone2.conv1.weight" in sd:
-        take = _require(own, sd, "backbone2.")
+        take = _resnet_take(own, sd, "backbone2.")
     else:
         raise ValueError(f"Unknown checkpoint format (first key: {example_key})")
     _copy_into(model, take)

@@ -10,13 +10,21 @@ checkpoints on ``val_miou_frame_avg``, the final hard-argmax test
 
 Keys of the config's ``tpu`` block: ``compute_dtype`` (float32 or
 bfloat16) and ``device_normalize`` (uint8 batches, normalized by the
-model on the card) act; ``donate_state`` has no meaning in eager PyTorch
-and is logged; ``profile_dir``/``profile_start``/``profile_steps`` trace
-steps with ``torch.profiler``. What needs more than one card or a fused
-program raises ``NotImplementedError`` (``check_tpu_keys``): ``scan_steps
-> 1``, ``fused_optimizer: true``, a ``mesh_shape`` with an axis longer
-than 1, or the multi-process variables ``RCF_COORDINATOR`` / ``RCF_DIST``;
-``mesh_shape: [-1]`` means the one card the port runs on.
+model on the card) act; ``fused_optimizer`` selects torch's fused Adam
+(``train/state.py``); ``mesh_shape`` must be ``[-1]`` or the number of
+ranks (``check_tpu_keys``); ``scan_steps`` (K steps a dispatch, the same
+math as K single steps) and ``donate_state`` have no effect in eager
+PyTorch and are logged; ``profile_dir``/``profile_start``/``profile_steps``
+trace steps of rank 0 with ``torch.profiler``.
+
+Several ranks (``parallel/dist.py``; ``cli.py`` joins the group): each rank
+loads ``global_batch_size / world`` rows a step (its shard of the JAX
+loader's plan), the state is rank 0's after init or restore, evaluation
+runs each rank's slice of every batch and rebuilds the batch's
+probabilities on every rank (the same mIoU and election everywhere), the
+export is sharded by sequence, and rank 0 alone writes the resolved
+config, the elected channel, ``metrics.jsonl``, the visualizations and
+the checkpoints. Each rank beats its own heartbeat file.
 
 Every train step is written to ``metrics.jsonl`` at ``loss_log_interval``
 with its host times: ``loader_wait_s`` (blocked on the next batch) and
@@ -39,36 +47,35 @@ from .. import yaml_subset
 from ..data import DataLoader, VideoDataset, get_transform
 from ..eval.harness import Evaluator, Exporter, frame_id_from_path
 from ..models import build_from_config
+from ..parallel import dist
 from ..utils import get_logger, resolve_device
 from ..utils.watchdog import CKPT_GRACE_S, COMPILE_GRACE_S, DEFAULT_GRACE_S, Heartbeat
 from .checkpoint import (TopKKeeper, find_resumable, load_flownet, load_pretrained,
                          restore_checkpoint, save_checkpoint)
 from .metrics import MetricsLogger, StepProfiler
 from .state import compute_dtype, create_train_state
-from .step import make_eval_step, make_train_step, maybe_crf_fn
+from .step import make_eval_step, make_train_step, maybe_crf_fn, step_seed
 
 logger = get_logger()
 
 _RCF_STEP_KEYS = ("imgs", "gt_fw_flows", "gt_bw_flows", "pl_masks")
-_MULTI_CARD = "multi-card training is not ported yet (ROADMAP.md Queue 1 item 5: DDP)"
 
 
 def check_tpu_keys(cfg) -> None:
-    """Raise on the ``tpu`` settings and environment the port does not run."""
+    """Raise where the ``tpu`` settings or the environment do not fit the ranks:
+    a ``mesh_shape`` other than ``[-1]`` or the world size, or the
+    multi-process variables set with no process group joined. Log the keys
+    that have no effect in eager PyTorch."""
     tpu = cfg.get("tpu") or {}
+    if "donate_state" in tpu:
+        logger.info("tpu.donate_state has no meaning in eager PyTorch; ignored")
     if int(tpu.get("scan_steps", 1)) > 1:
-        raise NotImplementedError(
-            "tpu.scan_steps > 1 (K steps a dispatch) is not ported (ROADMAP.md Queue 1 item 6; "
-            "its counterpart on the card is a CUDA graph of K steps)")
-    if bool(tpu.get("fused_optimizer", False)):
-        raise NotImplementedError("tpu.fused_optimizer is not ported (ROADMAP.md Queue 1 item 6)")
-    mesh = list(tpu.get("mesh_shape", [-1]) or [-1])
-    if any(int(n) > 1 for n in mesh):
-        raise NotImplementedError(f"tpu.mesh_shape {mesh} asks for more than one device: "
-                                  f"{_MULTI_CARD}")
-    for var in ("RCF_COORDINATOR", "RCF_DIST"):
-        if os.environ.get(var):
-            raise NotImplementedError(f"{var} is set: {_MULTI_CARD}")
+        logger.info("tpu.scan_steps has no effect in eager PyTorch (one step a call, the "
+                    "same math); ignored")
+    if dist.requested() and not dist.joined():
+        raise RuntimeError("RCF_COORDINATOR / RCF_DIST is set but no process group was joined: "
+                           "run through rcf_tpu_torch.cli or call parallel.init_distributed first")
+    dist.check_mesh_shape(tpu.get("mesh_shape", [-1]))
 
 
 def _save_object_channel(ckpt_dir: str, channel: int, epoch: int) -> None:
@@ -102,6 +109,21 @@ def _transform(cfg, training: bool):
     return tf
 
 
+def rank_batch_size(cfg) -> int:
+    """This rank's rows a step: ``global_batch_size / world``.
+
+    JAX's multi-process loader gives every process ``global_batch_size``
+    rows, so a step there sees world x the recipe's batch; the port keeps
+    the recipe's global batch, as JAX's one-process run over many devices
+    does.
+    """
+    global_batch = int(cfg.get("global_batch_size", cfg.batch_size))
+    if global_batch % dist.world():
+        raise ValueError(f"global_batch_size {global_batch} does not divide by "
+                         f"{dist.world()} ranks")
+    return global_batch // dist.world()
+
+
 def _build_loaders(cfg, training: bool, pin_memory: bool = False):
     dataset_registry = {"VideoDataset": VideoDataset}
     dataset_cls = dataset_registry[cfg.get("dataset_cls", "VideoDataset")]
@@ -109,11 +131,12 @@ def _build_loaders(cfg, training: bool, pin_memory: bool = False):
     if training:
         ds = dataset_cls(cfg.data_path, training=True, **cfg.dataset_kwargs.to_dict(),
                          **cfg.train_dataset_kwargs.to_dict())
-        global_batch = int(cfg.get("global_batch_size", cfg.batch_size))
         # force_no_shuffle: deterministic order for visualization (main.py:324-328).
         shuffle = not bool(cfg.get("force_no_shuffle", False))
-        return DataLoader(ds, _transform(cfg, training=True), batch_size=global_batch,
-                          shuffle=shuffle, seed=int(cfg.get("seed", 0)), num_workers=workers,
+        return DataLoader(ds, _transform(cfg, training=True),
+                          batch_size=rank_batch_size(cfg), shuffle=shuffle,
+                          seed=int(cfg.get("seed", 0)), num_workers=workers,
+                          shard_index=dist.rank(), num_shards=dist.world(),
                           pin_memory=pin_memory)
     data_path = cfg.get("test_data_path") or cfg.data_path
     kwargs = cfg.test_dataset_kwargs.to_dict()
@@ -137,19 +160,22 @@ def _val_loader(cfg, subsample: int = 10, pin_memory: bool = False):
                       group_by_shape=True, pin_memory=pin_memory)
 
 
-def step_seed(seed: int, global_step: int) -> int:
-    """The dropout generator's seed of one step, from (seed, global_step)
-    (the counterpart of ``fold_in(PRNGKey(seed), global_step)``)."""
-    return int(np.random.SeedSequence([seed, global_step]).generate_state(1, np.uint64)[0] >> 1)
-
-
 def evaluate(state, loader, eval_pos_th, object_channel, use_ema=False, exporter=None,
              display_all=False, name="val_miou", save_vis_dir=None, device="cuda",
              hb: Heartbeat | None = None, metrics_log: MetricsLogger | None = None):
-    """mIoU of ``state.model`` over ``loader`` (channel election, export, visualizations)."""
+    """mIoU of ``state.model`` over ``loader`` (channel election, export, visualizations).
+
+    Over several ranks every rank loads every batch, pads it to a multiple
+    of the world size, runs its contiguous slice of rows and rebuilds the
+    batch's probabilities (``gather_rows``); rank 0 alone writes the
+    visualizations.
+    """
     from .visualize import save_eval_visualization
 
     dev = resolve_device(device)
+    size, rk = dist.world(), dist.rank()
+    if not dist.is_main():
+        save_vis_dir = None
     hb = hb or Heartbeat(None)
     eval_step = make_eval_step(use_ema=use_ema)
     evaluator = Evaluator(eval_pos_th=eval_pos_th, num_channels=state.model.mask_layer,
@@ -161,7 +187,16 @@ def evaluate(state, loader, eval_pos_th, object_channel, use_ema=False, exporter
         hb.beat(COMPILE_GRACE_S if size_key not in seen_sizes else DEFAULT_GRACE_S)
         seen_sizes.add(size_key)
         imgs_host = batch["imgs"][:, 0]  # [B, H, W, 3]
-        probs = eval_step(state, imgs_host.to(dev, non_blocking=True))
+        if size == 1:
+            probs = eval_step(state, imgs_host.to(dev, non_blocking=True))
+        else:
+            b_real = imgs_host.shape[0]
+            pad_to = -(-b_real // size) * size
+            imgs = torch.cat([imgs_host, imgs_host[:1].expand(pad_to - b_real,
+                                                              *imgs_host.shape[1:])])
+            per = pad_to // size
+            local = eval_step(state, imgs[rk * per:(rk + 1) * per].to(dev, non_blocking=True))
+            probs = dist.gather_rows(local, pad_to)[:b_real]
         frame_ids = [frame_id_from_path(p[0]) for p in batch["paths"]]
         evaluator.process_batch(probs, batch["ann"].to(dev, non_blocking=True),
                                 batch["seq_names"], frame_ids)
@@ -179,11 +214,36 @@ def evaluate(state, loader, eval_pos_th, object_channel, use_ema=False, exporter
     return result
 
 
+def _train_visualization(model, batch: dict, step_in: dict, out_dir: str, global_step: int):
+    """The train grid of the step's first pair (rank 0's row 0 is the batch's row 0).
+
+    Every rank runs the forward (its residual head's BatchNorm reduces over
+    the ranks); rank 0 writes.
+    """
+    from .visualize import compose_train_grid, save_train_grid, vis_forward
+
+    try:
+        probs_v, flows_v = vis_forward(model, step_in["imgs"], step_in["gt_fw_flows"],
+                                       step_in["gt_bw_flows"])
+        if not dist.is_main():
+            return
+        flows_np = {k: (fw.float().cpu().numpy(), bw.float().cpu().numpy())
+                    for k, (fw, bw) in flows_v.items()}
+        pl = batch["pl_masks"].numpy() if "pl_masks" in batch else None
+        grid = compose_train_grid(batch["imgs"].numpy(), probs_v.float().cpu().numpy(),
+                                  flows_np, pl)
+        frame_id = os.path.splitext(os.path.basename(batch["paths"][0][0]))[0]
+        save_train_grid(out_dir, global_step, batch["seq_names"][0], frame_id, grid)
+    except Exception as exc:  # as the reference: saving failures only warn
+        logger.warning(f"train visualization failed: {exc!r}")
+
+
 def _exporter(cfg, save_eval: str, save_export: str, object_channel):
     if not (cfg.get("eval_save") and cfg.get("eval_export")):
         return None
     return Exporter(save_eval, save_export, export_all_seg=bool(cfg.get("export_all_seg", False)),
-                    object_channel=object_channel or 0)
+                    object_channel=object_channel or 0, process_index=dist.rank(),
+                    process_count=dist.world())
 
 
 def _step_batch(batch: dict, dev: torch.device, rcf: bool, object_channel) -> dict:
@@ -201,22 +261,24 @@ def run(cfg, test_only: bool = False, no_test: bool = False, device: str = "cuda
     dev = resolve_device(device)
     check_tpu_keys(cfg)
     pin = dev.type == "cuda"
+    main_rank = dist.is_main()
     ckpt_dir = cfg.checkpoints_dir
-    os.makedirs(ckpt_dir, exist_ok=bool(cfg.get("allow_overwriting_checkpoints_dir", True)))
-    hb = Heartbeat(ckpt_dir)
+    if main_rank:
+        os.makedirs(ckpt_dir, exist_ok=bool(cfg.get("allow_overwriting_checkpoints_dir", True)))
+    dist.barrier()
+    hb = Heartbeat(ckpt_dir, host=dist.rank())
     hb.beat(COMPILE_GRACE_S)
-    try:
-        with open(os.path.join(ckpt_dir, "config_resolved.yaml"), "w") as f:
-            f.write(yaml_subset.dump(cfg.to_dict()))
-    except (OSError, TypeError) as exc:
-        logger.warning(f"could not dump resolved config: {exc}")
+    if main_rank:
+        try:
+            with open(os.path.join(ckpt_dir, "config_resolved.yaml"), "w") as f:
+                f.write(yaml_subset.dump(cfg.to_dict()))
+        except (OSError, TypeError) as exc:
+            logger.warning(f"could not dump resolved config: {exc}")
     save_eval = os.path.join(ckpt_dir, cfg.get("saved_eval_dir_name", "saved_eval"))
     save_export = os.path.join(ckpt_dir, cfg.get("saved_eval_export_dir_name",
                                                  "saved_eval_export"))
 
     tpu_cfg = cfg.get("tpu") or {}
-    if "donate_state" in tpu_cfg:
-        logger.info("tpu.donate_state has no meaning in eager PyTorch; ignored")
     cfg_dict = cfg.to_dict()
     seed = int(cfg.get("seed", 0))
     model = build_from_config(cfg, device=dev, seed=seed, dtype=compute_dtype(cfg_dict))
@@ -262,6 +324,7 @@ def run(cfg, test_only: bool = False, no_test: bool = False, device: str = "cuda
                     f"starting at epoch {start_epoch}")
     elif restore_from is not None:
         state = restore_checkpoint(restore_from, state, weights_only=True)
+    dist.broadcast_state(state)  # every rank from rank 0's state (JAX's replicate)
 
     object_channel = cfg.get("object_channel")
     if object_channel is None and os.environ.get("OBJECT_CHANNEL"):
@@ -273,7 +336,7 @@ def run(cfg, test_only: bool = False, no_test: bool = False, device: str = "cuda
     logger.info(f"Using {object_channel} as object channel")
 
     eval_on_ema = bool(cfg.get("eval_on_ema", False))
-    metrics_log = MetricsLogger(ckpt_dir)
+    metrics_log = MetricsLogger(ckpt_dir if main_rank else None)
 
     if test_only:
         vis_dir = save_eval if cfg.get("eval_save") else None
@@ -284,13 +347,12 @@ def run(cfg, test_only: bool = False, no_test: bool = False, device: str = "cuda
                         hb=hb, metrics_log=metrics_log)
 
     # ---------------- training ----------------
-    from .visualize import compose_train_grid, save_train_grid, vis_forward
-
     train_step = make_train_step(crf_fn=maybe_crf_fn(model))
     vis_interval = int(cfg.model_kwargs.get("log_interval", 50))
     train_vis_dir = os.path.join(ckpt_dir, "saved")
     keeper = TopKKeeper(ckpt_dir, k=2)
-    profiler = StepProfiler(tpu_cfg.get("profile_dir"), start=int(tpu_cfg.get("profile_start", 10)),
+    profiler = StepProfiler(tpu_cfg.get("profile_dir") if main_rank else None,
+                            start=int(tpu_cfg.get("profile_start", 10)),
                             steps=int(tpu_cfg.get("profile_steps", 5)))
     generator = torch.Generator(device=dev)
     loss_log_interval = int(cfg.get("loss_log_interval", 100))
@@ -320,7 +382,7 @@ def run(cfg, test_only: bool = False, no_test: bool = False, device: str = "cuda
             profiler.maybe_stop(global_step)
             compile_pending = False
             hb.beat()
-            frames += int(batch["imgs"].shape[0] * batch["imgs"].shape[1])
+            frames += int(batch["imgs"].shape[0] * batch["imgs"].shape[1]) * dist.world()
             if global_step % loss_log_interval == 0:
                 vals = {k: float(v) for k, v in losses.items()}
                 step_s = time.perf_counter() - t0 - wait
@@ -331,19 +393,7 @@ def run(cfg, test_only: bool = False, no_test: bool = False, device: str = "cuda
                 metrics_log.log(step=global_step, epoch=epoch, loader_wait_s=wait,
                                 step_s=step_s, **{f"train_{k}": v for k, v in vals.items()})
             if rcf and vis_interval > 0 and global_step % vis_interval == 0:
-                try:
-                    probs_v, flows_v = vis_forward(model, step_in["imgs"], step_in["gt_fw_flows"],
-                                                   step_in["gt_bw_flows"])
-                    flows_np = {k: (fw.float().cpu().numpy(), bw.float().cpu().numpy())
-                                for k, (fw, bw) in flows_v.items()}
-                    pl = batch["pl_masks"].numpy() if "pl_masks" in batch else None
-                    grid = compose_train_grid(batch["imgs"].numpy(), probs_v.float().cpu().numpy(),
-                                              flows_np, pl)
-                    frame_id = os.path.splitext(os.path.basename(batch["paths"][0][0]))[0]
-                    save_train_grid(train_vis_dir, global_step, batch["seq_names"][0], frame_id,
-                                    grid)
-                except Exception as exc:  # as the reference: saving failures only warn
-                    logger.warning(f"train visualization failed: {exc!r}")
+                _train_visualization(model, batch, step_in, train_vis_dir, global_step)
         epoch_s = time.perf_counter() - epoch_t0
         metrics_log.log(epoch=epoch, train_epoch_s=epoch_s, train_frames=frames)
         logger.info(f"epoch {epoch} done in {epoch_s:.1f}s")
@@ -356,7 +406,8 @@ def run(cfg, test_only: bool = False, no_test: bool = False, device: str = "cuda
                 object_channel = result.elected_channel
                 logger.info(f"Set object channel to {object_channel} "
                             f"(channel distribution: {result.max_channel_freq})")
-                _save_object_channel(ckpt_dir, object_channel, epoch)
+                if main_rank:
+                    _save_object_channel(ckpt_dir, object_channel, epoch)
                 compile_pending = True
             metrics_log.log(epoch=epoch, val_miou=result.miou,
                             val_miou_frame_avg=result.miou_frame_avg,

@@ -18,11 +18,17 @@ import torch
 
 
 class MetricsLogger:
-    def __init__(self, ckpt_dir: str):
-        self.path = os.path.join(ckpt_dir, "metrics.jsonl")
-        os.makedirs(ckpt_dir, exist_ok=True)
+    """Appends records to ``<ckpt_dir>/metrics.jsonl``; a no-op with ``ckpt_dir=None``
+    (every rank but the first)."""
+
+    def __init__(self, ckpt_dir: str | None):
+        self.path = os.path.join(ckpt_dir, "metrics.jsonl") if ckpt_dir else None
+        if ckpt_dir:
+            os.makedirs(ckpt_dir, exist_ok=True)
 
     def log(self, **metrics) -> None:
+        if self.path is None:
+            return
         record = {"ts": time.time(), **metrics}
         with open(self.path, "a") as f:
             f.write(json.dumps(record) + "\n")

@@ -1,11 +1,21 @@
-"""Train state: the model, torch Adam with the poly-epoch LR, and the step count.
+"""Train state: the model, the optimizer with the poly-epoch LR, and the step count.
 
-Port of ``rcf_tpu/train/state.py`` for the optimizer the AMD recipe uses:
-``torch.optim.Adam(lr, weight_decay)``, i.e. an L2 term added to the
-gradient before the moments (not AdamW), betas (0.9, 0.999), eps 1e-8,
-as ``make_optimizer`` chains ``add_decayed_weights`` ahead of
-``scale_by_adam``. The learning rate of update ``k`` (0-based) is
-``poly_epoch_schedule(k)``, as optax counts.
+Port of ``rcf_tpu/train/state.py``. The optimizers of ``make_optimizer``,
+in the order of its chains, betas (0.9, 0.999), eps 1e-8:
+
+* ``adam`` (the recipes'): ``torch.optim.Adam(lr, weight_decay)``, an L2
+  term added to the gradient before the moments (``add_decayed_weights``
+  ahead of ``scale_by_adam``);
+* ``adamw``: the decay after the moments (``scale_by_adam`` then
+  ``add_decayed_weights``), ``torch.optim.AdamW``;
+* ``sgd``: the L2 term and the learning rate, ``torch.optim.SGD`` without
+  momentum.
+
+``tpu.fused_optimizer: true`` (JAX's ``fused_adam``, the same update in a
+few passes) runs ``adam`` as ``torch.optim.Adam(fused=True)``: one
+implementation and one state layout either way. It is off under a
+``freeze_*`` mask, as in JAX. The learning rate of update ``k`` (0-based)
+is ``poly_epoch_schedule(k)``, as optax counts.
 
 EMA (RCF models built with ``backbone2.create_ema``): the model's copies
 ``backbone2_ema`` and ``decode_head2_ema`` take no optimizer update; the
@@ -82,6 +92,21 @@ def compute_dtype(cfg: dict) -> torch.dtype:
     return torch.bfloat16 if name == "bfloat16" else torch.float32
 
 
+def _make_optimizer(cfg: dict, params: list, lr: float, frozen: tuple) -> torch.optim.Optimizer:
+    """The recipe's optimizer over ``params`` (``make_optimizer`` / ``fused_adam``)."""
+    name = str(cfg.get("optimizer", "adam")).lower()
+    wd = float(cfg.get("weight_decay", 0.0))
+    if name == "adam":
+        fused = bool((cfg.get("tpu") or {}).get("fused_optimizer", False)) and not frozen
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=wd,
+                                fused=fused or None)
+    if name == "adamw":
+        return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=wd)
+    if name == "sgd":
+        return torch.optim.SGD(params, lr=lr, weight_decay=wd)
+    raise ValueError(f"unsupported optimizer {name}")
+
+
 def _frozen_subtrees(cfg: dict) -> tuple[str, ...]:
     """Top-level submodules the recipe freezes (``freeze_backbone``, ``freeze_flownet``)."""
     model_kwargs = cfg.get("model_kwargs") or {}
@@ -94,10 +119,8 @@ def _frozen_subtrees(cfg: dict) -> tuple[str, ...]:
 
 
 def create_train_state(cfg: dict, model: nn.Module, steps_per_epoch: int) -> TrainState:
-    """Adam + poly schedule over ``model``'s trainable parameters, from a recipe config dict."""
-    name = str(cfg.get("optimizer", "adam")).lower()
-    if name != "adam":
-        raise NotImplementedError(f"the port's train state has Adam only, got {name!r}")
+    """The optimizer + poly schedule over ``model``'s trainable parameters, from a
+    recipe config dict."""
     sched_cfg = cfg.get("lr_scheduler_kwargs", {})
     schedule = poly_epoch_schedule(
         base_lr=float(cfg["learning_rate"]),
@@ -112,8 +135,7 @@ def create_train_state(cfg: dict, model: nn.Module, steps_per_epoch: int) -> Tra
     ema_names = tuple(f"{k}_ema" for k in EMA_SUBTREES)
     params = [p for name, p in model.named_parameters()
               if name.split(".")[0] not in frozen + ema_names]
-    optimizer = torch.optim.Adam(params, lr=schedule(0), betas=(0.9, 0.999),
-                                 eps=1e-8, weight_decay=float(cfg.get("weight_decay", 0.0)))
+    optimizer = _make_optimizer(cfg, params, schedule(0), frozen)
     ema_m = None
     if ((cfg.get("model_kwargs") or {}).get("backbone2") or {}).get("create_ema", False):
         if not getattr(model, "has_ema", False):

@@ -15,6 +15,14 @@ before this step's update; the object channel's mask resized to the
 frames; ``crf_fn`` (``ops/crf.py::make_crf_fn``; ``maybe_crf_fn`` builds
 it from the model's ``crf_head``); the refined map resized to the mask
 grid. It enters ``forward`` as ``crf_target_masks``.
+
+Over several ranks (``parallel/dist.py``) each rank runs the step on its
+rows: the BatchNorms reduce their statistics over the ranks, the
+gradients are averaged over ranks (one all-reduce) before the optimizer,
+and the returned losses are the ranks' means, so every rank's state and
+losses are those of the whole batch. Stage 2.1's target is made from the
+rank's rows alone (each image's mean field stops on its own). The EMA
+moves on every rank from the same weights.
 """
 
 from __future__ import annotations
@@ -22,11 +30,13 @@ from __future__ import annotations
 import contextlib
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..models.rcf import take_channel
 from ..ops.crf import make_crf_fn
 from ..ops.resize import resize_bilinear
+from ..parallel import dist
 from .state import TrainState, ema_update
 
 
@@ -96,6 +106,8 @@ def make_train_step(crf_fn: Callable | None = None) -> Callable[..., dict]:
         state.optimizer.zero_grad(set_to_none=True)
         losses, _ = model(**batch, generator=generator)
         losses["loss"].backward()
+        dist.all_reduce_mean_([p.grad for group in state.optimizer.param_groups
+                               for p in group["params"]])
         lr = state.schedule(state.step)
         for group in state.optimizer.param_groups:
             group["lr"] = lr
@@ -103,9 +115,15 @@ def make_train_step(crf_fn: Callable | None = None) -> Callable[..., dict]:
         if state.ema_m is not None:
             ema_update(model, state.ema_m)
         state.step += 1
-        return {k: v.detach() for k, v in losses.items()}
+        return dist.mean_losses({k: v.detach() for k, v in losses.items()})
 
     return train_step
+
+
+def step_seed(seed: int, global_step: int) -> int:
+    """The dropout generator's seed of one step, from (seed, global_step)
+    (the counterpart of ``fold_in(PRNGKey(seed), global_step)``)."""
+    return int(np.random.SeedSequence([seed, global_step]).generate_state(1, np.uint64)[0] >> 1)
 
 
 def make_eval_step(use_ema: bool = False) -> Callable[..., torch.Tensor]:

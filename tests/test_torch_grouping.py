@@ -133,7 +133,7 @@ def vit_small_ckpt(tmp_path_factory):
 
 
 def test_get_dino_model_loads_what_jax_loads(vit_small_ckpt):
-    model, sd = dino_vit.get_dino_model("vit_small", 8, vit_small_ckpt)
+    model, sd = dino_vit.get_dino_model("vit_small", 8, vit_small_ckpt, device="cpu")
     jmodel, params = jax_vit.get_dino_model("vit_small", 8, vit_small_ckpt)
     ref = dino_state_from_jax(params, depth=12)
     assert set(sd) == set(ref) == set(model.state_dict())
@@ -141,7 +141,7 @@ def test_get_dino_model_loads_what_jax_loads(vit_small_ckpt):
         assert torch.equal(v, ref[k]), k
     assert (model.train_grid, jmodel.train_grid, model.depth) == (28, 28, 12)
     with pytest.warns(UserWarning, match="random weights"):
-        _, none = dino_vit.get_dino_model("vit_small", 8, None)
+        _, none = dino_vit.get_dino_model("vit_small", 8, None, device="cpu")
     assert none is None
 
 

@@ -124,3 +124,39 @@ def test_entry_points_need_a_card_unless_given_cpu(monkeypatch):
         build_amd_model(kwargs, device="cuda")
     model = build_amd_model(kwargs, device="cpu")
     assert next(model.parameters()).device.type == "cpu"
+
+
+_PARALLEL = _IMPORT_ALL.split("import rcf_tpu_torch")[0] + textwrap.dedent("""
+    import os
+    import torch
+    from rcf_tpu_torch import parallel
+    from rcf_tpu_torch.parallel import dist
+
+    assert (dist.world(), dist.rank(), dist.is_main()) == (1, 0, True)
+    t = torch.ones(3)
+    dist.all_reduce_mean_([t])            # world 1: no collective, the tensor as it was
+    assert torch.equal(t, torch.ones(3)) and dist.gather_rows(t, 3) is t
+    parallel.check_mesh_shape([-1]) or parallel.check_mesh_shape([1])
+    os.environ.update(RCF_DIST="1", RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    torch.cuda.is_available = lambda: False
+    try:
+        parallel.init_distributed()       # the card by default: no fallback to gloo or the CPU
+    except RuntimeError as e:
+        assert "no CUDA device" in str(e)
+    else:
+        raise AssertionError("init_distributed ran without a card")
+    assert not torch.distributed.is_initialized()
+    leaked = sorted(m for m in sys.modules if blocked(m))
+    assert not leaked, leaked
+    print("parallel ok")
+""")
+
+
+def test_parallel_imports_without_jax_and_refuses_a_missing_card():
+    """``rcf_tpu_torch.parallel`` with jax, the JAX package, yaml, cv2 and PIL
+    blocked: one process is a world of 1 that issues no collective, and
+    ``init_distributed`` on the card (its default) raises without one."""
+    proc = subprocess.run([sys.executable, "-c", _PARALLEL], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split()[-1] == "ok"

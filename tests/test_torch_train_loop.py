@@ -329,12 +329,19 @@ def test_resume_continues_at_the_next_epoch(davis_like, tmp_path):
 @pytest.mark.parametrize("key,value", [("scan_steps", 2), ("fused_optimizer", True),
                                        ("mesh_shape", [2]), ("RCF_DIST", "1")])
 def test_what_needs_more_than_one_card_raises(davis_like, tmp_path, monkeypatch, key, value):
+    """What does not fit the ranks raises, as it fails in JAX: a mesh_shape other
+    than [-1] or the world size, and the multi-process variables set with no
+    process group joined. ``scan_steps`` and ``fused_optimizer`` now run
+    (tests/test_torch_options.py holds them to JAX)."""
     tree = _tree(davis_like, tmp_path)
     if key == "RCF_DIST":
         monkeypatch.setenv(key, value)
     else:
         tree["tpu"] = {key: value}
-    with pytest.raises(NotImplementedError, match="Queue 1 item"):
+    if key in ("scan_steps", "fused_optimizer"):
+        loop.check_tpu_keys(Config(tree))
+        return
+    with pytest.raises((ValueError, RuntimeError), match="mesh_shape|process group"):
         loop.run(Config(tree), device="cpu")
 
 

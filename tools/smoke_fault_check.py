@@ -85,6 +85,26 @@ stage-2.1 card-vs-CPU check:
 * ``key_tail_dropped``: the keys of the last, partial key stage treated as
   padding (weight 0), which an N that is a multiple of the stage never shows.
 
+Then chip_smoke's data_parallel hold (``chip_smoke.dp_ranks``: two gloo
+ranks on the card, each its own process, against one process with the
+whole batch; ``DP_LIMITS``), sound and with each fault planted in both ranks:
+
+* ``per_rank_bn``: the cross-rank BatchNorm on the rank's own rows (no
+  all-reduce of its statistics, nor of its backward's sums);
+* ``ratio_per_rank``: unFlow's occlusion ratio as the rank's own ratio of
+  means (``dist.global_ratio`` replaced by ``num / den``);
+* ``ratio_no_den``: ``dist.global_ratio`` without its denominator's
+  gradient term (the value unchanged). The recipes' occlusion masks are
+  comparisons, with no gradient, so no hold on the card can see this one;
+  ``tests/test_torch_parallel.py`` holds the term with a denominator that
+  has a gradient.
+
+Beside them it prints the hold's noise control (world 1 against world 1
+with ``DP_NOISE`` on the frames) for each case.
+
+``python3 tools/smoke_fault_check.py data_parallel`` runs that part alone
+(~2 min on an H100).
+
 Last, one JSON line. Needs a CUDA device; imports no JAX.
 """
 
@@ -338,6 +358,62 @@ def rcf_crf_faults(torch, cs, cpu: dict) -> dict:
     return out
 
 
+DP_FAULTS = ("per_rank_bn", "ratio_per_rank", "ratio_no_den")
+
+
+def plant_dp_fault(name: str) -> None:
+    """In this rank's process, one of ``DP_FAULTS``."""
+    import types
+
+    import torch
+
+    from rcf_tpu_torch.nn import layers
+    from rcf_tpu_torch.parallel import dist
+
+    def ratio_no_den(num, den):
+        g = torch.stack([num.detach().float(), den.detach().float()])
+        dist.all_reduce_mean_([g])
+        n, d = g[0], g[1]
+        return (n / d + (num - num.detach()) / d).to(torch.result_type(num, den))
+
+    if name == "per_rank_bn":
+        layers.dist = types.SimpleNamespace(world=dist.world, all_reduce_sum=lambda x: x)
+    elif name == "ratio_per_rank":
+        dist.global_ratio = lambda num, den: num / den
+    elif name == "ratio_no_den":
+        dist.global_ratio = ratio_no_den
+    else:
+        raise ValueError(name)
+
+
+def dp_fault_command(name: str):
+    def command(rank: int, work: str) -> list:
+        return [sys.executable, os.path.abspath(__file__), "--dp-rank", name, str(rank), work]
+    return command
+
+
+def data_parallel_faults(torch, cs) -> dict:
+    """chip_smoke's data_parallel hold (two gloo ranks on the card against one
+    process), sound and with each of ``DP_FAULTS`` planted in both ranks."""
+    out = {}
+    for case in ("sound",) + DP_FAULTS:
+        command = cs.dp_rank_command if case == "sound" else dp_fault_command(case)
+        readings, _ = cs.dp_ranks(torch, command)
+        out[case] = {name: readings["hold"][name] for name in readings["hold"]}
+        if case == "sound":
+            out["noise"] = readings["noise"]
+            for name, noise in readings["noise"].items():
+                print(f"{'noise':14s} {name:9s} " + "  ".join(
+                    f"{k} {noise[k]:.3e}" for k in cs.DP_LIMITS[name]), flush=True)
+        for name, ranks in out[case].items():
+            lims = cs.DP_LIMITS[name]
+            worst = {k: max(r[k] for r in ranks) for k in lims}
+            caught = [k for k, v in worst.items() if v > lims[k]]
+            print(f"{case:14s} {name:9s} " + "  ".join(f"{k} {v:.3e}" for k, v in worst.items())
+                  + f"  caught by {caught or 'nothing'}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -348,6 +424,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--dp-rank"]:  # one rank of data_parallel_faults, the fault planted
+        plant_dp_fault(sys.argv[2])
+        return cs.dp_rank_main(torch, int(sys.argv[3]), sys.argv[4])
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    if sys.argv[1:] == ["data_parallel"]:
+        print(f"device {smi}; data_parallel limits {cs.DP_LIMITS}", flush=True)
+        print(json.dumps({"device": smi, "data_parallel": data_parallel_faults(torch, cs)}))
+        return 0
     import torch.nn.functional as F
 
     fwd, bwd, splat = wk.warp_fwd, wk.warp_bwd, wk.splat
@@ -416,8 +501,6 @@ def main() -> int:
                  (warp_ops, "_grid_sample_nhwc"): grid_sample}
     cpu = cs.reference_forward(torch, "cpu")
     cpu_img = cs.image_grad_readings(torch, "cpu")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"device {smi}; limits {cs.REF_LIMITS} {cs.IMG_LIMITS}")
     out = {}
     for case, patch in faults.items():
@@ -452,8 +535,11 @@ def main() -> int:
     crf = rcf_crf_faults(torch, cs, crf_cpu)
     print(f"crf_kernel limits {cs.CRF_TOL}", flush=True)
     crf_kernel = crf_kernel_faults(torch, cs, crf_cpu)
+    print(f"data_parallel limits {cs.DP_LIMITS}", flush=True)
+    dp = data_parallel_faults(torch, cs)
     print(json.dumps({"device": smi, "cases": out, "tail_dropped": tail, **overlap,
-                      "rcf": rcf, "rcf_crf": crf, "crf_kernel": crf_kernel}))
+                      "rcf": rcf, "rcf_crf": crf, "crf_kernel": crf_kernel,
+                      "data_parallel": dp}))
     return 0
 
 
