@@ -121,8 +121,8 @@ Phases, each timed:
                 state, bit for bit; ``--test`` on stage 2.1's ``last`` with the
                 export (frames x channels masks); 1 AMD epoch (warp_fwd,
                 warp_bwd, splat launched) and its test. Readings from each
-                run's ``metrics.jsonl``: step ms through the loop (steps 2+),
-                loader wait a step, frames/s, eval frames/s, checkpoint save
+                run's ``metrics.jsonl``: step device and host ms through the
+                loop (steps 2+), loader wait a step, frames/s, eval frames/s, checkpoint save
                 ms and size, stage 1's peak memory, decode ms a frame and
                 train-transform ms a pair.
 14. stage2_pipeline - the README pipeline after stage 2.1 through the port's
@@ -1779,22 +1779,25 @@ def _records(ckpt_dir: str) -> list:
 
 
 def loop_readings(ckpt_dir: str) -> dict:
-    """Host readings of one CLI run from its metrics.jsonl: the train steps'
-    time (steps 2+: from the batch in hand to the losses on the host) and the
-    loader's wait before each; frames/s over the epochs' train time (each
-    epoch's cold first batch included, so at a few steps an epoch it mostly
-    reads start-up) and over the steps after each epoch's first (the steady
-    rate: step plus loader wait); the evaluations' frames/s and the
-    checkpoints' save time. Every step is logged (``loss_log_interval 1``)."""
+    """Readings of one CLI run from its metrics.jsonl: the train steps' device
+    time (steps 2+: CUDA events around the step), host time (from the batch in
+    hand to the step's return) and the loader's wait before each; frames/s
+    over the epochs' train time (each epoch's cold first batch included, so at
+    a few steps an epoch it mostly reads start-up) and over the steps after
+    each epoch's first (the steady rate: the wall time between successive
+    step records, each written after its loss read); the evaluations'
+    frames/s and the checkpoints' save time. Every step's losses are logged
+    (``loss_log_interval 1``)."""
     recs = _records(ckpt_dir)
     steps = [r for r in recs if "train_loss" in r]
     later = [r for r in steps if r["step"] >= 2] or steps
     epochs = [r for r in recs if "train_epoch_s" in r]
     out = {"steps": len(steps)}
     if steps:
-        out.update(step_ms=1e3 * sum(r["step_s"] for r in later) / len(later),
+        out.update(step_ms=1e3 * sum(r["step_device_s"] for r in later) / len(later),
+                   step_host_ms=1e3 * sum(r["step_host_s"] for r in later) / len(later),
                    loader_wait_ms=1e3 * sum(r["loader_wait_s"] for r in later) / len(later),
-                   first_step_ms=1e3 * steps[0]["step_s"],
+                   first_step_ms=1e3 * steps[0]["step_device_s"],
                    first_loader_wait_ms=1e3 * steps[0]["loader_wait_s"],
                    losses={k: [r[k] for r in steps] for k in steps[0] if k.startswith("train_")})
     if epochs:
@@ -1802,11 +1805,11 @@ def loop_readings(ckpt_dir: str) -> dict:
                                      / sum(r["train_epoch_s"] for r in epochs))
         out["epoch_s"] = [r["train_epoch_s"] for r in epochs]
         frames_per_step = sum(r["train_frames"] for r in epochs) / len(steps)
-        steady = [r for i, r in enumerate(steps) if i and r["epoch"] == steps[i - 1]["epoch"]]
+        steady = [(a, b) for a, b in zip(steps, steps[1:]) if a["epoch"] == b["epoch"]]
         if steady:
             out["steady_steps"] = len(steady)
             out["steady_frames_per_s"] = frames_per_step * len(steady) / sum(
-                r["step_s"] + r["loader_wait_s"] for r in steady)
+                b["ts"] - a["ts"] for a, b in steady)
     for name in ("val_miou", "test_miou"):
         evals = [r for r in recs if f"{name}_frames" in r]
         if evals:
@@ -2048,7 +2051,8 @@ def train_cli_readings(torch, wk, ck) -> tuple[dict, list]:
         bad = _nonfinite_losses(out[stage])
         if bad:
             failures.append(f"{stage}: non-finite losses {bad[:3]}")
-        log(f"train_cli {stage}: step {out[stage].get('step_ms', float('nan')):.1f} ms (steps 2+), "
+        log(f"train_cli {stage}: step {out[stage].get('step_ms', float('nan')):.1f} ms device, "
+            f"{out[stage].get('step_host_ms', float('nan')):.1f} ms host (steps 2+), "
             f"loader wait {out[stage].get('loader_wait_ms', float('nan')):.1f} ms a step, "
             f"{out[stage].get('train_frames_per_s', float('nan')):.1f} frames/s over the epochs, "
             f"{out[stage].get('steady_frames_per_s', float('nan')):.1f} steady "
@@ -2472,7 +2476,7 @@ def stage2_pipeline_readings(torch, wk, ck, crf_ops) -> tuple[dict, list]:
                                         times.items()) + f"; {total:.1f} s in all")
     s22 = out["stage2_2"]
     log(f"stage2_pipeline: MAA channel {channel}; {n_pl} pseudo-labels; stage 2.2 step "
-        f"{s22.get('step_ms', float('nan')):.1f} ms through the loop (steps 2+), "
+        f"{s22.get('step_ms', float('nan')):.1f} ms of device time through the loop (steps 2+), "
         f"{s22.get('steady_frames_per_s', float('nan')):.1f} frames/s steady, bare step "
         f"{out['stage2_2_bare_step_ms']:.1f} ms, peak {out['stage2_2_peak_gib']:.2f} GiB, "
         f"loss_pl {pl_losses}; test mIoU {out['test_miou']:.4f}; DAVIS {out['davis']}; "

@@ -29,6 +29,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .image_io import image_size
 
@@ -112,9 +113,10 @@ class DataLoader:
 
     # -- iteration ---------------------------------------------------------
     def _load_one(self, index: int) -> dict:
-        sample = self.dataset[int(index)]
-        rng = np.random.default_rng((self.seed, self.epoch, int(index)))
-        return self.transform(sample, rng)
+        with record_function("rcf.data.sample"):
+            sample = self.dataset[int(index)]
+            rng = np.random.default_rng((self.seed, self.epoch, int(index)))
+            return self.transform(sample, rng)
 
     def batches_of_indices(self):
         """The epoch's batches as arrays of dataset indices."""
@@ -167,7 +169,9 @@ class DataLoader:
                 with ThreadPoolExecutor(max_workers=max(1, self.num_workers)) as pool:
                     for batch_idx in self.batches_of_indices():
                         samples = list(pool.map(self._load_one, batch_idx))
-                        if not put(collate(samples, self.pin_memory)):
+                        with record_function("rcf.data.collate"):
+                            batch = collate(samples, self.pin_memory)
+                        if not put(batch):
                             return
             except Exception as exc:  # handed to the consumer, raised there
                 put(exc)

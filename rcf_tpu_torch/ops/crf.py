@@ -35,6 +35,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..utils.constants import device_constant
 from .crf_kernels import crf_filter
@@ -137,6 +138,11 @@ def mean_field(rgb_u8: torch.Tensor, masks: torch.Tensor, params: CRFParams,
                xy_scale=(1.0, 1.0), chunk: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
     """The mean field of each image: uint8 frames [B, h, w, 3], soft masks [B, h, w]
     -> (q1 [B, h, w] f32 before the threshold, iterations [B] int32)."""
+    with record_function("rcf.crf.mean_field"):
+        return _mean_field(rgb_u8, masks, params, xy_scale, chunk)
+
+
+def _mean_field(rgb_u8, masks, params: CRFParams, xy_scale, chunk):
     b, h, w = masks.shape
     unary = mask_to_unary(masks, params.crf_scale).reshape(b, h * w, 2)
     app = pixel_features(rgb_u8, params.sxy, params.srgb, xy_scale)
@@ -174,7 +180,9 @@ def mean_field(rgb_u8: torch.Tensor, masks: torch.Tensor, params: CRFParams,
         STATS["iterations"] += 1
         if (t + 1) % SYNC_EVERY == 0 and t + 1 < params.refine_iters:
             STATS["host_syncs"] += 1
-            if bool(done.all()):
+            with record_function("rcf.crf.flag_read"):
+                all_done = bool(done.all())
+            if all_done:
                 break
     return q1.reshape(b, h, w), iters
 
@@ -215,7 +223,8 @@ def make_crf_fn(resolution=None, chunk: int = 1024, engine: str = "attention", *
 
     def soft(imgs: torch.Tensor, masks: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """(q1 on the CRF grid before the threshold, each image's iterations)."""
-        rgb_run, masks_run, xy_scale = prepare(imgs, masks)
+        with record_function("rcf.crf.prepare"):
+            rgb_run, masks_run, xy_scale = prepare(imgs, masks)
         return mean_field(rgb_run, masks_run, params, xy_scale, chunk)
 
     def crf_fn(imgs: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,12 @@ failed initialization raises; nothing switches backend or device.
 Every collective here is an ``all_reduce`` or a ``broadcast`` of tensors on
 the rank's device, which NCCL and gloo both take. With a world of 1 (no
 process group) none is issued and every path is the single-card one.
+
+``STATS`` counts the collectives issued since ``reset_stats()``, by kind
+(``all_reduce``; ``broadcast``; ``gather``, the all-reduce that
+``gather_rows`` rebuilds a batch with): calls and payload bytes, so every
+value stays 0 at a world of 1. Each public collective past its one-rank
+return is a ``rcf.dist.<name>`` span (``train/metrics.py``).
 """
 
 from __future__ import annotations
@@ -31,11 +37,36 @@ import os
 
 import torch
 import torch.distributed as tdist
+from torch.profiler import record_function
 
 # The device the collectives' own tensors live on (set by init_distributed).
 _device = torch.device("cpu")
 
 DEFAULT_TIMEOUT_S = 1800.0
+
+# Collectives issued and their payload bytes, by kind, since the last reset_stats().
+STATS = {f"{kind}_{what}": 0 for kind in ("all_reduce", "broadcast", "gather")
+         for what in ("calls", "bytes")}
+
+
+def reset_stats() -> None:
+    for k in STATS:
+        STATS[k] = 0
+
+
+def _count(kind: str, buf: torch.Tensor) -> None:
+    STATS[f"{kind}_calls"] += 1
+    STATS[f"{kind}_bytes"] += buf.numel() * buf.element_size()
+
+
+def _all_reduce(buf: torch.Tensor, kind: str = "all_reduce", **kwargs) -> None:
+    _count(kind, buf)
+    tdist.all_reduce(buf, **kwargs)
+
+
+def _broadcast(buf: torch.Tensor, src: int) -> None:
+    _count("broadcast", buf)
+    tdist.broadcast(buf, src)
 
 
 def world() -> int:
@@ -149,18 +180,20 @@ def all_reduce_mean_(tensors: list[torch.Tensor]) -> None:
     tensors = [t for t in tensors if t is not None]
     if world() == 1 or not tensors:
         return
-    buf = _flat(tensors, torch.float32)
-    tdist.all_reduce(buf)
-    buf /= world()
-    _unflat_(buf, tensors)
+    with record_function("rcf.dist.all_reduce_mean"):
+        buf = _flat(tensors, torch.float32)
+        _all_reduce(buf)
+        buf /= world()
+        _unflat_(buf, tensors)
 
 
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     """The sum over ranks of ``x`` (a new tensor; ``x`` itself with one rank)."""
     if world() == 1:
         return x
-    out = x.detach().clone()
-    tdist.all_reduce(out)
+    with record_function("rcf.dist.all_reduce_sum"):
+        out = x.detach().clone()
+        _all_reduce(out)
     return out
 
 
@@ -168,8 +201,9 @@ def all_reduce_max(x: torch.Tensor) -> torch.Tensor:
     """The elementwise maximum over ranks of ``x`` (no gradient through other ranks)."""
     if world() == 1:
         return x
-    out = x.detach().clone()
-    tdist.all_reduce(out, op=tdist.ReduceOp.MAX)
+    with record_function("rcf.dist.all_reduce_max"):
+        out = x.detach().clone()
+        _all_reduce(out, op=tdist.ReduceOp.MAX)
     return out
 
 
@@ -177,10 +211,11 @@ def mean_losses(losses: dict) -> dict:
     """Each (scalar) loss averaged over ranks, in its dtype: the whole batch's losses."""
     if world() == 1:
         return losses
-    keys = list(losses)
-    vals = torch.stack([losses[k].detach().float().reshape(()) for k in keys])
-    all_reduce_mean_([vals])
-    return {k: v.reshape(losses[k].shape).to(losses[k].dtype) for k, v in zip(keys, vals)}
+    with record_function("rcf.dist.mean_losses"):
+        keys = list(losses)
+        vals = torch.stack([losses[k].detach().float().reshape(()) for k in keys])
+        all_reduce_mean_([vals])
+        return {k: v.reshape(losses[k].shape).to(losses[k].dtype) for k, v in zip(keys, vals)}
 
 
 def global_ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
@@ -194,24 +229,26 @@ def global_ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
     """
     if world() == 1:
         return num / den
-    g = torch.stack([num.detach().float(), den.detach().float()])
-    all_reduce_mean_([g])
-    n, d = g[0], g[1]
-    out = n / d + (num - num.detach()) / d - n * (den - den.detach()) / (d * d)
-    return out.to(torch.result_type(num, den))
+    with record_function("rcf.dist.global_ratio"):
+        g = torch.stack([num.detach().float(), den.detach().float()])
+        all_reduce_mean_([g])
+        n, d = g[0], g[1]
+        out = n / d + (num - num.detach()) / d - n * (den - den.detach()) / (d * d)
+        return out.to(torch.result_type(num, den))
 
 
 def broadcast_(tensors: list[torch.Tensor], src: int = 0) -> None:
     """Overwrite each tensor with rank ``src``'s: one broadcast a dtype."""
     if world() == 1:
         return
-    by_dtype: dict = {}
-    for t in tensors:
-        by_dtype.setdefault(t.dtype, []).append(t)
-    for dtype, group in by_dtype.items():
-        buf = _flat(group, dtype)
-        tdist.broadcast(buf, src)
-        _unflat_(buf, group)
+    with record_function("rcf.dist.broadcast"):
+        by_dtype: dict = {}
+        for t in tensors:
+            by_dtype.setdefault(t.dtype, []).append(t)
+        for dtype, group in by_dtype.items():
+            buf = _flat(group, dtype)
+            _broadcast(buf, src)
+            _unflat_(buf, group)
 
 
 def _optimizer_tensors(optimizer) -> list[torch.Tensor]:
@@ -229,11 +266,12 @@ def broadcast_state(state, src: int = 0) -> None:
     parameters and buffers, the optimizer's state and the step count."""
     if world() == 1:
         return
-    model_tensors = list(state.model.state_dict().values())
-    broadcast_(model_tensors + _optimizer_tensors(state.optimizer), src)
-    step = torch.tensor([state.step], dtype=torch.int64, device=_device)
-    tdist.broadcast(step, src)
-    state.step = int(step.item())
+    with record_function("rcf.dist.broadcast_state"):
+        model_tensors = list(state.model.state_dict().values())
+        broadcast_(model_tensors + _optimizer_tensors(state.optimizer), src)
+        step = torch.tensor([state.step], dtype=torch.int64, device=_device)
+        _broadcast(step, src)
+        state.step = int(step.item())
 
 
 def gather_rows(local: torch.Tensor, rows: int) -> torch.Tensor:
@@ -243,11 +281,12 @@ def gather_rows(local: torch.Tensor, rows: int) -> torch.Tensor:
     size = world()
     if size == 1:
         return local
-    per = rows // size
-    buf = torch.zeros((rows, *local.shape[1:]), dtype=torch.float32, device=local.device)
-    buf[rank() * per:(rank() + 1) * per] = local.float()
-    tdist.all_reduce(buf)
-    return buf.to(local.dtype)
+    with record_function("rcf.dist.gather_rows"):
+        per = rows // size
+        buf = torch.zeros((rows, *local.shape[1:]), dtype=torch.float32, device=local.device)
+        buf[rank() * per:(rank() + 1) * per] = local.float()
+        _all_reduce(buf, kind="gather")
+        return buf.to(local.dtype)
 
 
 def local_rows(full: torch.Tensor, rows_per_sample: int = 1) -> torch.Tensor:
@@ -267,4 +306,5 @@ def barrier() -> None:
     """Wait for every rank (an all-reduce of one element on the rank's device)."""
     if world() == 1:
         return
-    tdist.all_reduce(torch.zeros(1, device=_device))
+    with record_function("rcf.dist.barrier"):
+        _all_reduce(torch.zeros(1, device=_device))

@@ -26,11 +26,17 @@ export is sharded by sequence, and rank 0 alone writes the resolved
 config, the elected channel, ``metrics.jsonl``, the visualizations and
 the checkpoints. Each rank beats its own heartbeat file.
 
-Every train step is written to ``metrics.jsonl`` at ``loss_log_interval``
-with its host times: ``loader_wait_s`` (blocked on the next batch) and
-``step_s`` (from the batch to the step's losses on the host); each epoch
-with ``train_epoch_s`` and ``train_frames``; each evaluation with
-``eval_frames`` and ``eval_s``.
+Every train step is written to ``metrics.jsonl``: ``loader_wait_s``
+(blocked on the next batch), ``step_host_s`` (host time from the batch in
+hand to the step's return), ``step_device_s`` (CUDA events around the
+step; null on the CPU) and the step's deltas of ``ops/crf.py::STATS`` and
+``parallel/dist.py::STATS`` (``crf_*``, ``dist_*``); the losses
+(``train_*``) on every ``loss_log_interval``-th step only. The records
+wait in memory until that step's loss read, the epoch's end or the next
+other record, so that none adds a host sync or a file write to a step.
+Each epoch is written with ``train_epoch_s`` and ``train_frames``; each
+evaluation with ``<name>_frames`` and ``<name>_s``. The loop's phases are
+``rcf.loop.*`` spans (``train/metrics.py``).
 """
 
 from __future__ import annotations
@@ -42,11 +48,13 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import yaml_subset
 from ..data import DataLoader, VideoDataset, get_transform
 from ..eval.harness import Evaluator, Exporter, frame_id_from_path
 from ..models import build_from_config
+from ..ops import crf as crf_ops
 from ..parallel import dist
 from ..utils import get_logger, resolve_device
 from ..utils.watchdog import CKPT_GRACE_S, COMPILE_GRACE_S, DEFAULT_GRACE_S, Heartbeat
@@ -172,46 +180,47 @@ def evaluate(state, loader, eval_pos_th, object_channel, use_ema=False, exporter
     """
     from .visualize import save_eval_visualization
 
-    dev = resolve_device(device)
-    size, rk = dist.world(), dist.rank()
-    if not dist.is_main():
-        save_vis_dir = None
-    hb = hb or Heartbeat(None)
-    eval_step = make_eval_step(use_ema=use_ema)
-    evaluator = Evaluator(eval_pos_th=eval_pos_th, num_channels=state.model.mask_layer,
-                          object_channel=object_channel, exporter=exporter)
-    seen_sizes: set = set()
-    t0, frames = time.perf_counter(), 0
-    for batch in loader:
-        size_key = (len(batch["imgs"]),) + tuple(batch["imgs"].shape[-3:-1])
-        hb.beat(COMPILE_GRACE_S if size_key not in seen_sizes else DEFAULT_GRACE_S)
-        seen_sizes.add(size_key)
-        imgs_host = batch["imgs"][:, 0]  # [B, H, W, 3]
-        if size == 1:
-            probs = eval_step(state, imgs_host.to(dev, non_blocking=True))
-        else:
-            b_real = imgs_host.shape[0]
-            pad_to = -(-b_real // size) * size
-            imgs = torch.cat([imgs_host, imgs_host[:1].expand(pad_to - b_real,
-                                                              *imgs_host.shape[1:])])
-            per = pad_to // size
-            local = eval_step(state, imgs[rk * per:(rk + 1) * per].to(dev, non_blocking=True))
-            probs = dist.gather_rows(local, pad_to)[:b_real]
-        frame_ids = [frame_id_from_path(p[0]) for p in batch["paths"]]
-        evaluator.process_batch(probs, batch["ann"].to(dev, non_blocking=True),
-                                batch["seq_names"], frame_ids)
-        frames += len(frame_ids)
-        if save_vis_dir is not None:
-            # One visualization per batch, as rcf_model.py:241-308.
-            vis_name = (f"eval_{batch['seq_names'][0]}_{int(batch['seq_ids'][0])}_"
-                        f"{frame_ids[0]}_0000000")
-            save_eval_visualization(save_vis_dir, vis_name, imgs_host[0].numpy(),
-                                    probs[0].float().cpu().numpy())
-    result = evaluator.finalize(display_all=display_all, name=name)
-    logger.info(result.summary(name))
-    if metrics_log is not None:
-        metrics_log.log(**{f"{name}_frames": frames, f"{name}_s": time.perf_counter() - t0})
-    return result
+    with record_function("rcf.loop.eval"):
+        dev = resolve_device(device)
+        size, rk = dist.world(), dist.rank()
+        if not dist.is_main():
+            save_vis_dir = None
+        hb = hb or Heartbeat(None)
+        eval_step = make_eval_step(use_ema=use_ema)
+        evaluator = Evaluator(eval_pos_th=eval_pos_th, num_channels=state.model.mask_layer,
+                              object_channel=object_channel, exporter=exporter)
+        seen_sizes: set = set()
+        t0, frames = time.perf_counter(), 0
+        for batch in loader:
+            size_key = (len(batch["imgs"]),) + tuple(batch["imgs"].shape[-3:-1])
+            hb.beat(COMPILE_GRACE_S if size_key not in seen_sizes else DEFAULT_GRACE_S)
+            seen_sizes.add(size_key)
+            imgs_host = batch["imgs"][:, 0]  # [B, H, W, 3]
+            if size == 1:
+                probs = eval_step(state, imgs_host.to(dev, non_blocking=True))
+            else:
+                b_real = imgs_host.shape[0]
+                pad_to = -(-b_real // size) * size
+                imgs = torch.cat([imgs_host, imgs_host[:1].expand(pad_to - b_real,
+                                                                  *imgs_host.shape[1:])])
+                per = pad_to // size
+                local = eval_step(state, imgs[rk * per:(rk + 1) * per].to(dev, non_blocking=True))
+                probs = dist.gather_rows(local, pad_to)[:b_real]
+            frame_ids = [frame_id_from_path(p[0]) for p in batch["paths"]]
+            evaluator.process_batch(probs, batch["ann"].to(dev, non_blocking=True),
+                                    batch["seq_names"], frame_ids)
+            frames += len(frame_ids)
+            if save_vis_dir is not None:
+                # One visualization per batch, as rcf_model.py:241-308.
+                vis_name = (f"eval_{batch['seq_names'][0]}_{int(batch['seq_ids'][0])}_"
+                            f"{frame_ids[0]}_0000000")
+                save_eval_visualization(save_vis_dir, vis_name, imgs_host[0].numpy(),
+                                        probs[0].float().cpu().numpy())
+        result = evaluator.finalize(display_all=display_all, name=name)
+        logger.info(result.summary(name))
+        if metrics_log is not None:
+            metrics_log.log(**{f"{name}_frames": frames, f"{name}_s": time.perf_counter() - t0})
+        return result
 
 
 def _train_visualization(model, batch: dict, step_in: dict, out_dir: str, global_step: int):
@@ -363,37 +372,56 @@ def run(cfg, test_only: bool = False, no_test: bool = False, device: str = "cuda
 
     global_step = start_epoch * steps_per_epoch
     compile_pending = True
+    timed = dev.type == "cuda" and metrics_log.path is not None
     for epoch in range(start_epoch, epochs):
         train_loader.set_epoch(epoch)
         epoch_t0, frames = time.perf_counter(), 0
         batches = iter(train_loader)
         while True:
             t0 = time.perf_counter()
-            batch = next(batches, None)
+            with record_function("rcf.loop.loader_wait"):
+                batch = next(batches, None)
             if batch is None:
                 break
-            wait = time.perf_counter() - t0
-            step_in = _step_batch(batch, dev, rcf, object_channel)
+            t_batch = time.perf_counter()
+            with record_function("rcf.loop.to_device"):
+                step_in = _step_batch(batch, dev, rcf, object_channel)
             generator.manual_seed(step_seed(seed, global_step))
             profiler.maybe_start(global_step)
             hb.beat(COMPILE_GRACE_S if compile_pending else DEFAULT_GRACE_S)
+            crf_before, dist_before = dict(crf_ops.STATS), dict(dist.STATS)
+            events = None
+            if timed:
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                events[0].record()
             losses = train_step(state, step_in, generator=generator)
+            if events is not None:
+                events[1].record()
             global_step += 1
+            record = {"step": global_step, "epoch": epoch, "loader_wait_s": t_batch - t0,
+                      "step_host_s": time.perf_counter() - t_batch,
+                      **{f"crf_{k}": v - crf_before[k] for k, v in crf_ops.STATS.items()},
+                      **{f"dist_{k}": v - dist_before[k] for k, v in dist.STATS.items()}}
             profiler.maybe_stop(global_step)
             compile_pending = False
             hb.beat()
             frames += int(batch["imgs"].shape[0] * batch["imgs"].shape[1]) * dist.world()
             if global_step % loss_log_interval == 0:
-                vals = {k: float(v) for k, v in losses.items()}
-                step_s = time.perf_counter() - t0 - wait
+                with record_function("rcf.loop.log"):
+                    vals = {k: float(v) for k, v in losses.items()}
+                metrics_log.step(dict(record, **{f"train_{k}": v for k, v in vals.items()}),
+                                 events)
+                metrics_log.flush()
                 if not np.isfinite(vals["loss"]):
                     raise RuntimeError(f"loss is NaN at step {global_step}: {vals}")
                 logger.info(f"epoch {epoch} step {global_step}: " +
                             " ".join(f"{k}={v:.4f}" for k, v in vals.items()))
-                metrics_log.log(step=global_step, epoch=epoch, loader_wait_s=wait,
-                                step_s=step_s, **{f"train_{k}": v for k, v in vals.items()})
+            else:
+                metrics_log.step(record, events)
             if rcf and vis_interval > 0 and global_step % vis_interval == 0:
-                _train_visualization(model, batch, step_in, train_vis_dir, global_step)
+                with record_function("rcf.loop.visualize"):
+                    _train_visualization(model, batch, step_in, train_vis_dir, global_step)
         epoch_s = time.perf_counter() - epoch_t0
         metrics_log.log(epoch=epoch, train_epoch_s=epoch_s, train_frames=frames)
         logger.info(f"epoch {epoch} done in {epoch_s:.1f}s")
@@ -415,14 +443,16 @@ def run(cfg, test_only: bool = False, no_test: bool = False, device: str = "cuda
             if (epoch + 1) % ckpt_every == 0 or epoch == epochs - 1:
                 hb.beat(CKPT_GRACE_S)
                 t_save = time.perf_counter()
-                keeper.save(state, result.miou_frame_avg, tag=f"e{epoch}")
+                with record_function("rcf.loop.checkpoint"):
+                    keeper.save(state, result.miou_frame_avg, tag=f"e{epoch}")
                 metrics_log.log(epoch=epoch, checkpoint_s=time.perf_counter() - t_save)
                 hb.beat()
         elif (epoch + 1) % ckpt_every == 0 or epoch == epochs - 1:
             # Validation off this epoch: still checkpoint `last` (main.py:434-436).
             hb.beat(CKPT_GRACE_S)
             t_save = time.perf_counter()
-            save_checkpoint(ckpt_dir, "last", state)
+            with record_function("rcf.loop.checkpoint"):
+                save_checkpoint(ckpt_dir, "last", state)
             metrics_log.log(epoch=epoch, checkpoint_s=time.perf_counter() - t_save)
             hb.beat()
 

@@ -32,6 +32,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..models.rcf import take_channel
 from ..ops.crf import make_crf_fn
@@ -74,7 +75,8 @@ def _crf_targets(model, imgs: torch.Tensor, object_channel, crf_fn) -> torch.Ten
     imgs_flat = imgs.reshape(b * i, *imgs.shape[2:])
     # model.train() set the EMA copies training too: the target reads their
     # running statistics and must not move them.
-    with _eval_mode(model.backbone2_ema, model.decode_head2_ema):
+    with _eval_mode(model.backbone2_ema, model.decode_head2_ema), \
+            record_function("rcf.crf_target.ema_forward"):
         probs = model.mask_probs(imgs_flat, use_ema=True)
     obj = take_channel(probs, object_channel)
     obj_full = resize_bilinear(obj[..., None], tuple(imgs.shape[2:4]), model.align_corners)[..., 0]
@@ -95,25 +97,37 @@ def make_train_step(crf_fn: Callable | None = None) -> Callable[..., dict]:
 
     def train_step(state: TrainState, batch: dict,
                    generator: torch.Generator | None = None) -> dict:
+        with record_function("rcf.step"):
+            return _step(state, batch, generator)
+
+    def _step(state: TrainState, batch: dict, generator: torch.Generator | None) -> dict:
         model = state.model
         w_crf = getattr(model, "w_crf", 0.0)
         if w_crf > 0 and crf_fn is None:
             raise ValueError("model has w_crf > 0 but no crf_fn was provided")
         model.train()
         if w_crf > 0 and batch.get("object_channel_set", False):
-            target = _crf_targets(model, batch["imgs"], batch.get("object_channel", 0), crf_fn)
+            with record_function("rcf.step.crf_target"):
+                target = _crf_targets(model, batch["imgs"], batch.get("object_channel", 0),
+                                      crf_fn)
             batch = dict(batch, crf_target_masks=target)
         state.optimizer.zero_grad(set_to_none=True)
-        losses, _ = model(**batch, generator=generator)
-        losses["loss"].backward()
-        dist.all_reduce_mean_([p.grad for group in state.optimizer.param_groups
-                               for p in group["params"]])
-        lr = state.schedule(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        state.optimizer.step()
-        if state.ema_m is not None:
-            ema_update(model, state.ema_m)
+        with record_function("rcf.step.forward"):
+            losses, _ = model(**batch, generator=generator)
+        with record_function("rcf.step.backward"):
+            losses["loss"].backward()
+        with record_function("rcf.step.update"):
+            with record_function("rcf.step.grad_allreduce"):
+                dist.all_reduce_mean_([p.grad for group in state.optimizer.param_groups
+                                       for p in group["params"]])
+            lr = state.schedule(state.step)
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr
+            with record_function("rcf.step.optimizer"):
+                state.optimizer.step()
+            if state.ema_m is not None:
+                with record_function("rcf.step.ema_update"):
+                    ema_update(model, state.ema_m)
         state.step += 1
         return dist.mean_losses({k: v.detach() for k, v in losses.items()})
 

@@ -378,6 +378,26 @@ def test_step_at_world_2_matches_world_1(ranks, model):
     assert all(torch.equal(a[k], b[k]) for k in a)
 
 
+@pytest.mark.parametrize("model", ["stage1", "stage2_1"])
+def test_step_collectives_counted_from_the_model(ranks, model):
+    """An RCF step's collectives at world 2 in ``dist.STATS``: each BatchNorm
+    call in training mode all-reduces 2c + 1 floats forward and 2c backward, the
+    gradients one f32 buffer of every parameter that has a gradient, the losses
+    one of their count; no broadcast, no gather. At world 1 every value is 0."""
+    name = f"{model}_drop"
+    w1 = ranks.world1[name]
+    assert w1["collectives"] and set(w1["collectives"].values()) == {0}
+    for out in (o[name] for o in ranks.outs):
+        bn = out["bn_channels"]
+        assert bn and bn == w1["bn_channels"]
+        grad_numel = sum(g.numel() for g in out["grads"].values())
+        floats = sum(4 * c + 1 for c in bn) + grad_numel + len(out["losses"])
+        assert out["collectives"] == {"all_reduce_calls": 2 * len(bn) + 2,
+                                      "all_reduce_bytes": 4 * floats,
+                                      "broadcast_calls": 0, "broadcast_bytes": 0,
+                                      "gather_calls": 0, "gather_bytes": 0}
+
+
 @pytest.mark.parametrize("model", STEPS)
 def test_step_at_world_2_matches_the_jax_sharded_step(ranks, model):
     """Dropout 0: the losses and the state after one step against JAX's step on
@@ -517,6 +537,19 @@ def test_loop_at_world_2_reads_as_world_1(ranks):
                       for p, _, fs in os.walk(d) for f in fs
                       if not f.startswith(".heartbeat") and f != "metrics.jsonl")
     assert listing(d2) == listing(d1)
+
+
+def test_loop_records_count_each_steps_collectives(ranks):
+    """Each step's record in ``metrics.jsonl`` holds its collectives: the same
+    all-reduces every step at world 2 and none in the step itself at world 1."""
+    steps = [[r for r in map(json.loads, open(os.path.join(ranks.work, d, "metrics.jsonl")))
+              if "step" in r] for d in ("run_w1", "run_w2")]
+    assert steps[0] and len(steps[0]) == len(steps[1])
+    assert all(r[k] == 0 for r in steps[0] for k in r if k.startswith("dist_"))
+    calls = {r["dist_all_reduce_calls"] for r in steps[1]}
+    assert len(calls) == 1 and calls.pop() > 2
+    assert all(r["dist_all_reduce_bytes"] > 0 and r["dist_broadcast_calls"] == 0
+               and r["dist_gather_calls"] == 0 for r in steps[1])
 
 
 # ---------------------------------------------------------------------------

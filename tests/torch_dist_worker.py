@@ -56,7 +56,9 @@ def bn_case(x: torch.Tensor, g: torch.Tensor) -> dict:
 
 def step_case(spec: dict) -> dict:
     """One train step of ``spec``'s model on this rank's rows: the losses, the
-    averaged gradients (read as the optimizer starts) and the state after."""
+    averaged gradients (read as the optimizer starts), the state after, the
+    step's collectives (``dist.STATS``) and the channels of each BatchNorm
+    call in training mode."""
     build = build_amd_model if spec["amd"] else build_model
     model = build(spec["model_kwargs"], device="cpu")
     model.load_state_dict(spec["state_dict"])
@@ -70,12 +72,21 @@ def step_case(spec: dict) -> dict:
         return adam_step(*args, **kwargs)
 
     state.optimizer.step = read_grads
+    bn_channels: list = []
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out: bn_channels.append(mod.weight.numel()) if mod.training else None)
+        for m in model.modules() if isinstance(m, BatchNorm2d)]
     step = make_train_step(crf_fn=maybe_crf_fn(model))
     batch = dict(local_rows(spec["batch"]), **spec.get("extra", {}))
     gen = torch.Generator().manual_seed(step_seed(0, 0))
+    dist.reset_stats()
     losses = step(state, batch, generator=gen)
+    collectives = dict(dist.STATS)
+    for hook in hooks:
+        hook.remove()
     return {"losses": losses, "grads": grads,
-            "state": {k: v.clone() for k, v in model.state_dict().items()}}
+            "state": {k: v.clone() for k, v in model.state_dict().items()},
+            "collectives": collectives, "bn_channels": bn_channels}
 
 
 def unflow_case(flows: list, im1: torch.Tensor, im2: torch.Tensor) -> dict:
