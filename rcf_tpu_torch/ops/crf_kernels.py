@@ -9,15 +9,20 @@ exact normalized Gaussian filter of one mean-field iteration:
 the self term included. It replaces XLA code of the JAX package
 (``rcf_tpu/ops/crf.py::_normalized_filter``), not a TPU kernel. The
 hand-written kernel (``csrc/crf.cu``, D = 5 and D = 2) keeps no N x N
-buffer: the logits come from tensor cores in split TF32 (each operand
-centred, then split into two TF32 parts, three products), the weights
-from ``ex2``, the sums in f32; its source note gives the accuracy
-argument. ``crf_filter_plain`` is the same function as JAX's chunked
-attention, batched, which the CPU takes.
+buffer and forms each unordered pixel pair once: the pixels are cut into
+tiles of ``TILE``, and each tile pair (I, J) with I <= J adds its weights
+to its rows' sums and, off the diagonal, to its columns'. The logits come
+from tensor cores in split TF32 (each operand centred, then split into two
+TF32 parts, three products), the weights from ``ex2``, the sums in f32;
+its source note gives the schedule and the accuracy argument.
+``crf_filter_plain`` is the same function as JAX's chunked attention,
+batched, which the CPU takes.
 
 The wrapper takes the plain version only for a tensor on the CPU; on a
 CUDA tensor it launches the kernel or raises, and adds one to
-``LAUNCHES["crf_filter"]`` where it launches. The library is built by
+``LAUNCHES["crf_filter"]`` and the logits the launch forms to
+``STATS["pairs_evaluated"]`` (``schedule_pairs``; B N^2 to
+``STATS["pairs_dense"]``) where it launches. The library is built by
 ``cuda_build`` from ``csrc/crf.cu`` at the first launch (or ``build()``).
 """
 
@@ -33,16 +38,31 @@ from .cuda_build import CSRC_DIR
 SOURCES = ("crf.cu",)
 _STEM = "librcf_crf"
 FEATURE_DIMS = (2, 5)  # the compiled instances: xy features, and xy + rgb
-GRID_Z_LIMIT = 65535  # the batch rides the launch grid's z
-N_LIMIT = 2**31 - 256  # query blocks and key stages of 256, 32-bit pixel indices
+GRID_Z_LIMIT = 65535  # images a call at most
+N_LIMIT = 2**31 - 256  # tiles of 256, 32-bit pixel indices
+TILE = 256  # pixels a tile of the kernel's schedule (csrc/crf.cu's kTile)
 
 LAUNCHES = {"crf_filter": 0}
+# The logits the launches formed (T^2 a tile pair of the schedule, ragged
+# tiles at their padded size) and those of the dense filter (B N^2).
+STATS = {"pairs_evaluated": 0, "pairs_dense": 0}
 
 _lib: ctypes.CDLL | None = None
+# device index -> (sums f32, done i64): the kernel's per-image accumulators
+# and pair counters, zero between calls (the kernel leaves them so).
+_scratch: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def reset_launch_counts() -> None:
     LAUNCHES["crf_filter"] = 0
+    STATS["pairs_evaluated"] = STATS["pairs_dense"] = 0
+
+
+def schedule_pairs(b: int, n: int) -> int:
+    """The logits the kernel forms for ``b`` images of ``n`` pixels: T^2 for each
+    tile pair (I, J), I <= J, of the nT = ceil(n / T) tiles an image."""
+    nt = -(-n // TILE)
+    return b * (nt * (nt + 1) // 2) * TILE * TILE
 
 
 def build(csrc_dir: str = CSRC_DIR) -> str:
@@ -58,7 +78,7 @@ def build_patched(replacements, tag: str) -> str:
 def load_library(path: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     p = ctypes.c_void_p
-    lib.rcf_crf_filter.argtypes = [p, p, p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, p]
+    lib.rcf_crf_filter.argtypes = [p, p, p, p, p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, p]
     lib.rcf_crf_filter.restype = ctypes.c_int
     return lib
 
@@ -68,6 +88,19 @@ def _load() -> ctypes.CDLL:
     if _lib is None:
         _lib = load_library(build())
     return _lib
+
+
+def _accumulators(device: torch.device, b: int, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The device's accumulators, grown to ``b`` images of ``n`` pixels. One set a
+    device: calls on it run in stream order (the step's one stream)."""
+    sums, done = _scratch.get(device.index, (None, None))
+    if sums is None or sums.numel() < 2 * b * n or done.numel() < b:
+        size = max(2 * b * n, 0 if sums is None else sums.numel())
+        count = max(b, 0 if done is None else done.numel())
+        sums = torch.zeros(size, dtype=torch.float32, device=device)
+        done = torch.zeros(count, dtype=torch.int64, device=device)
+        _scratch[device.index] = (sums, done)
+    return sums, done
 
 
 def crf_filter_plain(feat: torch.Tensor, values: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
@@ -117,6 +150,10 @@ def crf_filter(feat: torch.Tensor, values: torch.Tensor, chunk: int = 1024) -> t
         return crf_filter_plain(feat, values, chunk)
     feat, values = feat.contiguous(), values.contiguous()
     out = torch.empty_like(values)
+    sums, done = _accumulators(feat.device, b, n)
     cuda_build.launch(LAUNCHES, "crf_filter", _load().rcf_crf_filter, feat.device,
-                      feat.data_ptr(), values.data_ptr(), out.data_ptr(), b, n, d)
+                      feat.data_ptr(), values.data_ptr(), out.data_ptr(), sums.data_ptr(),
+                      done.data_ptr(), b, n, d)
+    STATS["pairs_evaluated"] += schedule_pairs(b, n)
+    STATS["pairs_dense"] += b * n * n
     return out

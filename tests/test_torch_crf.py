@@ -8,12 +8,14 @@ ragged N, the batched mean field against ``crf_soft_single`` under
 ``vmap`` (q1 before the threshold, the MAP, each image's iterations, with
 ``stable_exit`` on and off), ``make_crf_fn`` on a reduced grid, and the
 dense numpy golden of ``tests/test_crf.py`` (copied here); a model of the
-kernel's split-TF32 operands against float64 logits. The kernel itself runs
+kernel's split-TF32 operands against float64 logits, and a float64 model of
+its tile-pair schedule against the plain filter. The kernel itself runs
 only on the card (``cuda`` marker).
 """
 
 from __future__ import annotations
 
+import importlib.util
 import os
 import re
 
@@ -154,6 +156,7 @@ def test_crf_filter_plain_matches_jax(d):
     ck.reset_launch_counts()
     ours = ck.crf_filter(f, v, chunk=32)
     assert ck.LAUNCHES["crf_filter"] == 0
+    assert ck.STATS == {"pairs_evaluated": 0, "pairs_dense": 0}
     np.testing.assert_array_equal(ours.numpy(), ck.crf_filter_plain(f, v, 32).numpy())
     for k in range(feat.shape[0]):
         ref = jcrf._normalized_filter(jnp.asarray(feat[k]), jnp.asarray(vals[k])[:, None], 32)
@@ -362,25 +365,41 @@ def test_crf_filter_kernel_matches_plain_on_card(cuda, d):
         assert (ours - ck.crf_filter_plain(f, v)).abs().max() <= 1e-4, (b, h, w)
 
 
+# N -> (images, h, w) of the card's ragged cases: below one tile (1, 7), one
+# tile less one, exactly one, one more (the ragged rule in both directions),
+# two tiles and 5, a ragged DAVIS-sized N, the DAVIS grid, and the
+# SegTrackv2 stage-2.1 cell's 32 images of 128^2.
+RAGGED_SHAPES = {1: (2, 1, 1), 7: (2, 1, 7), 255: (2, 15, 17), 256: (2, 16, 16),
+                 257: (2, 1, 257), 2 * 256 + 5: (2, 11, 47), 97 * 61: (2, 97, 61),
+                 96 * 96: (2, 96, 96), 128 * 128: (32, 128, 128)}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [5, 2])
-@pytest.mark.parametrize("n", [1, 7, 97 * 61, 96 * 96])
+@pytest.mark.parametrize("n", sorted(RAGGED_SHAPES))
 def test_crf_filter_kernel_matches_plain_at_ragged_sizes(cuda, d, n):
-    """The kernel against its plain version at an N below one query block (1,
-    7), a ragged N (97 x 61) and a full 96^2 image, at the DAVIS scales (the
-    split-TF32 logits: limit 2e-4, ``chip_smoke.CRF_TOL``)."""
-    h, w = {1: (1, 1), 7: (1, 7), 97 * 61: (97, 61), 96 * 96: (96, 96)}[n]
-    feat, vals = _filter_inputs(d, 2, h, w)
+    """The kernel against its plain version at the sizes of ``RAGGED_SHAPES``, at
+    the DAVIS scales (the split-TF32 logits: limit 2e-4, ``chip_smoke.CRF_TOL``);
+    ``STATS`` reads the schedule's logits after one launch (50.8% of the dense
+    ones at the cell); a second call on the same inputs (the accumulator's
+    adds in another order) stays within the limit of the first."""
+    b, h, w = RAGGED_SHAPES[n]
+    feat, vals = _filter_inputs(d, b, h, w)
     f, v = torch.from_numpy(feat).to(cuda), torch.from_numpy(vals).to(cuda)
     ck.reset_launch_counts()
     ours = ck.crf_filter(f, v)
     torch.cuda.synchronize()
     assert ck.LAUNCHES["crf_filter"] == 1
+    assert ck.STATS == {"pairs_evaluated": ck.schedule_pairs(b, n), "pairs_dense": b * n * n}
+    if n == 128 * 128:
+        assert round(ck.STATS["pairs_evaluated"] / ck.STATS["pairs_dense"], 3) == 0.508
     assert (ours - ck.crf_filter_plain(f, v)).abs().max() <= 2e-4
+    again = ck.crf_filter(f, v)
+    assert (again - ours).abs().max() <= 2e-4
 
 
-# A model of the kernel's operands (csrc/crf.cu): centred on the midpoint of a
-# query block's bounding box, q' = log2(e) [f - c, -|f - c|^2/2, 1, 0...] and
+# A model of the kernel's operands (csrc/crf.cu): centred on the midpoint of the
+# bounding box of a strip's queries (one tile), q' = log2(e) [f - c, -|f - c|^2/2, 1, 0...] and
 # k' = [f - c, 1, -|f - c|^2/2, 0...] formed in f32, each split into TF32
 # parts hi = rna(x), lo = rna(x - hi); the logit is hi.hi + hi.lo + lo.hi.
 # The products here are float64, so what it holds is the operands' rounding:
@@ -391,8 +410,9 @@ LOG2E = np.float32(1.4426950408889634)
 SPLIT_LOGIT_ATOL = 2e-3
 
 
-def _kernel_query_block() -> int:
-    """Queries a block of the kernel, from its source: 16 kTiles kWarps."""
+def _kernel_tile() -> int:
+    """Pixels a tile of the kernel (a strip's queries, a pair's keys), from its
+    source: 16 kTiles kWarps."""
     with open(os.path.join(ck.CSRC_DIR, "crf.cu")) as f:
         src = f.read()
     val = {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
@@ -455,7 +475,7 @@ def test_split_tf32_parts_rebuild_the_operands(grid):
     """Each operand of the kernel's dot is hi + lo within one f32 ulp, both parts
     TF32 (their 13 low mantissa bits 0)."""
     f = _grid_features(grid)
-    fq = f[:_kernel_query_block()]
+    fq = f[:_kernel_tile()]
     for x in _operands(fq, f, _block_centre(fq)):
         hi, lo = _split(x)
         for part in (hi, lo):
@@ -467,10 +487,10 @@ def test_split_tf32_parts_rebuild_the_operands(grid):
 @pytest.mark.parametrize("centred", [True, False], ids=["centred", "uncentred"])
 @pytest.mark.parametrize("grid", sorted(GRIDS))
 def test_split_tf32_logits_match_float64(grid, centred):
-    """The logits rebuilt from the TF32 parts of a query block against all keys
+    """The logits rebuilt from the TF32 parts of a strip's queries against all keys
     lie within SPLIT_LOGIT_ATOL of float64 logits where their weight counts."""
     f = _grid_features(grid)
-    fq = f[:_kernel_query_block()]
+    fq = f[:_kernel_tile()]
     centre = _block_centre(fq) if centred else np.zeros(f.shape[1], np.float32)
     exact = _exact_logits(fq, f)
     err = np.abs(_split_logits(fq, f, centre) - exact)[exact > -20]
@@ -479,16 +499,124 @@ def test_split_tf32_logits_match_float64(grid, centred):
 
 @pytest.mark.parametrize("grid", sorted(GRIDS))
 def test_centring_leaves_the_split_logits(grid):
-    """The logit is invariant to a translation: operands centred on the block's
+    """The logit is invariant to a translation: operands centred on the strip's
     midpoint and uncentred ones give the same logits to SPLIT_LOGIT_ATOL, and
     the self logits (exactly 0) stay within it of 0 (den >= 1 to rounding)."""
     f = _grid_features(grid)
-    fq = f[:_kernel_query_block()]
+    fq = f[:_kernel_tile()]
     exact = _exact_logits(fq, f)
     centred = _split_logits(fq, f, _block_centre(fq))
     uncentred = _split_logits(fq, f, np.zeros(f.shape[1], np.float32))
     assert np.abs(centred - uncentred)[exact > -20].max() <= SPLIT_LOGIT_ATOL
     assert np.abs(np.diag(centred[:, :len(fq)])).max() <= SPLIT_LOGIT_ATOL
+
+
+# A float64 model of the kernel's schedule (csrc/crf.cu): tiles of T pixels,
+# each tile pair (I, J) with I <= J formed once; a diagonal pair adds its
+# weights to its rows only, an off-diagonal pair to its rows and its columns;
+# pixels past N take the padded half-norm (and features 0), as either query
+# or key, so that their weights are exactly 0.
+PAD_HALF_NORM = 1e30
+# N -> (images, h, w): below one tile of 256 (1, 7), one less, exactly one, one
+# more, two and 5, a ragged DAVIS-sized N and the DAVIS grid.
+SCHEDULE_SHAPES = {1: (2, 1, 1), 7: (2, 1, 7), 255: (2, 15, 17), 256: (2, 16, 16),
+                   257: (2, 1, 257), 2 * 256 + 5: (2, 11, 47), 97 * 61: (1, 97, 61),
+                   96 * 96: (1, 96, 96)}
+
+
+def _schedule_filter(feat: np.ndarray, vals: np.ndarray, tile: int):
+    """The filter as the kernel's tile pairs sum it, in float64; returns it and
+    the logits formed (T^2 a tile pair)."""
+    b, n, d = feat.shape
+    nt = -(-n // tile)
+    f = np.zeros((b, nt * tile, d))
+    f[:, :n] = feat
+    v = np.zeros((b, nt * tile))
+    v[:, :n] = vals
+    h = 0.5 * (f * f).sum(-1)
+    h[:, n:] = PAD_HALF_NORM
+    real = np.arange(nt * tile) < n
+    num, den = np.zeros_like(v), np.zeros_like(v)
+    formed = 0
+    for i in range(nt):
+        rows = slice(i * tile, (i + 1) * tile)
+        for j in range(i, nt):
+            cols = slice(j * tile, (j + 1) * tile)
+            logit = (np.einsum("bid,bjd->bij", f[:, rows], f[:, cols])
+                     - h[:, rows, None] - h[:, None, cols])
+            w = np.exp(logit)
+            assert not w[:, ~real[rows]].any() and not w[:, :, ~real[cols]].any()
+            formed += tile * tile
+            num[:, rows] += np.einsum("bij,bj->bi", w, v[:, cols])
+            den[:, rows] += w.sum(-1)
+            if j != i:
+                num[:, cols] += np.einsum("bij,bi->bj", w, v[:, rows])
+                den[:, cols] += w.sum(1)
+    return num[:, :n] / den[:, :n], formed
+
+
+def test_accumulators_grow_and_are_kept():
+    """The kernel's accumulators are one set a device, zero, kept while a call
+    fits them and grown to the larger of each extent when one does not."""
+    dev = torch.device("cpu")
+    ck._scratch.pop(dev.index, None)
+    try:
+        sums, done = ck._accumulators(dev, 2, 10)
+        assert (sums.numel(), done.numel()) == (40, 2) and not sums.any() and not done.any()
+        assert ck._accumulators(dev, 1, 5)[0] is sums
+        sums, done = ck._accumulators(dev, 3, 10)
+        assert (sums.numel(), done.numel()) == (60, 3)
+        sums, done = ck._accumulators(dev, 1, 100)
+        assert (sums.numel(), done.numel()) == (200, 3)
+        assert sums.dtype == torch.float32 and done.dtype == torch.int64
+    finally:
+        ck._scratch.pop(dev.index, None)
+
+
+@pytest.mark.parametrize("d", [5, 2])
+@pytest.mark.parametrize("n", sorted(SCHEDULE_SHAPES))
+def test_tile_pair_schedule_matches_plain(d, n):
+    """The kernel's schedule (each tile pair once, diagonal pairs to rows only,
+    padded rows and keys of weight 0) equals the filter: the float64 model
+    against ``crf_filter_plain`` within FILTER_ATOL (the plain version's f32
+    logits), at N below, at and past one tile, two tiles and 5, and the DAVIS
+    sizes; ``schedule_pairs`` counts the logits the model forms, nT (nT + 1) / 2
+    T^2 an image, with T the source's tile."""
+    assert ck.TILE == _kernel_tile() == 256
+    b, h, w = SCHEDULE_SHAPES[n]
+    feat, vals = _filter_inputs(d, b, h, w)
+    model, formed = _schedule_filter(feat.astype(np.float64), vals.astype(np.float64), ck.TILE)
+    plain = ck.crf_filter_plain(torch.from_numpy(feat), torch.from_numpy(vals)).numpy()
+    np.testing.assert_allclose(plain, model, rtol=0, atol=FILTER_ATOL)
+    nt = -(-n // ck.TILE)
+    assert formed == nt * (nt + 1) // 2 * ck.TILE ** 2
+    assert ck.schedule_pairs(b, n) == b * formed
+
+
+def _tool(name: str):
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools",
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_tool_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# The source edits of the card tools: design variants and timing diagnostics
+# (tools/time_crf_variants.py), planted faults (tools/smoke_fault_check.py).
+SOURCE_EDITS = {**{f"variant {k}": v for k, v in _tool("time_crf_variants").VARIANTS.items()},
+                **{f"fault {k}": v for k, v in _tool("smoke_fault_check").CRF_KERNEL_FAULTS.items()}}
+
+
+@pytest.mark.parametrize("name", sorted(SOURCE_EDITS))
+def test_kernel_source_edits_apply(name):
+    """Each text a card tool replaces in crf.cu occurs there exactly once
+    (``cuda_build.build_patched`` raises otherwise), so the tools stay in step
+    with the source."""
+    with open(os.path.join(ck.CSRC_DIR, "crf.cu")) as f:
+        src = f.read()
+    for old, _ in SOURCE_EDITS[name]:
+        assert src.count(old) == 1, old
 
 
 def _measure():

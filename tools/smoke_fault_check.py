@@ -74,7 +74,7 @@ sound and with one fault at a time planted at run time on the card's side:
   batch's last exit instead of frozen at its own;
 * ``tf32_logits``: the filter's logits from a TF32 matrix product.
 
-Last, two faults built into ``crf.cu`` (``crf_kernels.build_patched``, in
+Last, three faults built into ``crf.cu`` (``crf_kernels.build_patched``, in
 the gitignored ``rcf_tpu_torch/build/``), each read by chip_smoke's
 ``crf_kernel`` comparisons (``crf_kernel_readings``: kernel against the
 plain version and against float64 on its five sets, ``CRF_TOL``) and by the
@@ -82,8 +82,10 @@ stage-2.1 card-vs-CPU check:
 
 * ``lo_products_dropped``: the dot without its hi.lo and lo.hi products, a
   single TF32 dot;
-* ``key_tail_dropped``: the keys of the last, partial key stage treated as
-  padding (weight 0), which an N that is a multiple of the stage never shows.
+* ``key_tail_dropped``: the keys of the last, partial key tile treated as
+  padding (weight 0), which an N that is a multiple of the tile never shows;
+* ``columns_dropped``: the tile pairs off the diagonal add their weights to
+  their rows only (each unordered pair then counts for one of its pixels).
 
 Then chip_smoke's data_parallel hold (``chip_smoke.dp_ranks``: two gloo
 ranks on the card, each its own process, against one process with the
@@ -256,14 +258,16 @@ def rcf_faults(torch, cs) -> dict:
     return out
 
 
-# The split dot's two correction products, and the test that marks a stage's
-# key as real, in crf.cu.
+# The split dot's two correction products, the test that marks a tile's key
+# as real, and the column sums of the pairs off the diagonal, in crf.cu.
 CRF_KERNEL_FAULTS = {
     "lo_products_dropped": [
         ("#pragma unroll\n    for (int m = 0; m < kTiles; ++m) mma_tf32(acc[m], a_lo[m], bh0, bh1);\n", ""),
         ("#pragma unroll\n    for (int m = 0; m < kTiles; ++m) mma_tf32(acc[m], a_hi[m], bl0, bl1);\n", "")],
-    "key_tail_dropped": [("    const bool real = j0 + r < n;",
-                          "    const bool real = j0 + r < n / kKeys * kKeys;")],
+    "key_tail_dropped": [("      const bool real = j0 + r < n;",
+                          "      const bool real = j0 + r < n / kTile * kTile;")],
+    "columns_dropped": [("        key_loop(std::true_type{});", "        key_loop(std::false_type{});"),
+                        ("      if (J != I) flush_columns(b, J * kTile);\n", "")],
 }
 
 

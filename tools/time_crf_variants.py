@@ -7,23 +7,29 @@ Builds every variant of ``VARIANTS`` (text replacements in a copy of
 ``crf.cu``, ``crf_kernels.build_patched``; ``release`` is the source as it
 is) and, for each ``--baseline``, the ``crf.cu`` of another source directory
 (an earlier design, e.g. ``git show <rev>:rcf_tpu_torch/csrc/crf.cu`` written
-into a directory under the gitignored ``rcf_tpu_torch/build/``), one nvcc
-each, side by side. For each library it prints the registers, spills and
-shared memory of each instance (``cuda_build.ptxas_entries``) and the worst
-error against ``crf_filter_plain`` and against a float64 filter on
-``chip_smoke``'s five kernel sets (``crf_filter_sets``, TF32 on, limits
-``CRF_TOL``). Then it times each at the DAVIS grid (16 x 96^2, D = 5) and
-the SegTrackv2 grid (16 x 128^2): device time on inputs the L2 does not
-hold (``chip_smoke.graph_ms`` over ``cold_sets``), in turns (baseline, the
-variants, then the same in reverse), ``--rounds`` times, each reading
-beside the bound (``chip_smoke.crf_bound``). Last, one JSON line with the
-card's name and power limit. Needs a CUDA device; imports no JAX.
+into a directory under the gitignored ``rcf_tpu_torch/build/``; one without
+the accumulators, the dense design before the tile-pair schedule, is called
+through its own signature), one nvcc each, side by side. For each library
+it prints the registers, spills and shared memory of each instance
+(``cuda_build.ptxas_entries``) and the worst error against
+``crf_filter_plain`` and against a float64 filter on ``chip_smoke``'s five
+kernel sets (``crf_filter_sets``, TF32 on, limits ``CRF_TOL``). Then it
+times each at ``GRIDS``: the DAVIS grid (16 x 96^2, D = 5), the SegTrackv2
+grid (16 x 128^2), the stage-2.1 cell's batch (32 x 128^2) and a 480p frame
+(1 x 480 x 854): device time on inputs the L2 does not hold
+(``chip_smoke.graph_ms`` over ``cold_sets``), in turns (baseline, the
+variants, then the same in reverse), ``--rounds`` times, each reading beside
+the dense ex2 floor (``chip_smoke.crf_bound``: B N^2 exponentials) and the
+schedule's (``crf_kernels.schedule_pairs`` exponentials). Last, one JSON
+line with the card's name and power limit. Needs a CUDA device; imports no
+JAX.
 """
 
 from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import ctypes
 import json
 import os
 import subprocess
@@ -38,54 +44,89 @@ def _set(name: str, old: int, new: int) -> tuple:
     return (f"constexpr int {name} = {old};", f"constexpr int {name} = {new};")
 
 
-W4, T1, T4 = _set("kWarps", 8, 4), _set("kTiles", 2, 1), _set("kTiles", 2, 4)
+W8, T2 = _set("kWarps", 4, 8), _set("kTiles", 4, 2)
+MIN3, MIN2 = _set("kMinBlocks", 4, 3), _set("kMinBlocks", 4, 2)
 NO_MIN_BLOCKS = ("__launch_bounds__(kThreads, kMinBlocks)", "__launch_bounds__(kThreads)")
 LO = "#pragma unroll\n    for (int m = 0; m < kTiles; ++m) mma_tf32(acc[m], a_lo[m], bh0, bh1);\n"
 HI = "#pragma unroll\n    for (int m = 0; m < kTiles; ++m) mma_tf32(acc[m], a_hi[m], bh0, bh1);\n"
 HI_LO = "#pragma unroll\n    for (int m = 0; m < kTiles; ++m) mma_tf32(acc[m], a_hi[m], bl0, bl1);\n"
-# The stage's key loop, software-pipelined: the next group's products issued
-# before this group's ex2.
+# The pair's group loop, unrolled 4 deep.
+GROUP_LOOP = "#pragma unroll 4\n    for (int grp = 0; grp < kGroups - 2; grp += 2) {"
+# The key loop, software-pipelined, and the same without the pipelining.
 PIPELINED = """    float acc0[kTiles][4], acc1[kTiles][4];
-    logits(acc0, s_key[buf][0][lane]);
-#pragma unroll
-    for (int grp = 0; grp < kKeys / 8; grp += 2) {
-      logits(acc1, s_key[buf][grp + 1][lane]);
-      accumulate(acc0, val[4 * grp]);
-      if (grp + 2 < kKeys / 8) logits(acc0, s_key[buf][grp + 2][lane]);
-      accumulate(acc1, val[4 * grp + 4]);
+    logits(acc0, s_key[0][lane]);
+#pragma unroll 4
+    for (int grp = 0; grp < kGroups - 2; grp += 2) {
+      logits(acc1, s_key[grp + 1][lane]);
+      accumulate(acc0, val[4 * grp], grp, columns);
+      logits(acc0, s_key[grp + 2][lane]);
+      accumulate(acc1, val[4 * grp + 4], grp + 1, columns);
     }
+    logits(acc1, s_key[kGroups - 1][lane]);
+    accumulate(acc0, val[4 * (kGroups - 2)], kGroups - 2, columns);
+    accumulate(acc1, val[4 * (kGroups - 1)], kGroups - 1, columns);
 """
-# The same without the pipelining: each group's products, then its ex2.
-PLAIN_LOOP = """#pragma unroll 4
-    for (int grp = 0; grp < kKeys / 8; ++grp) {
+PLAIN_LOOP = """#pragma unroll 8
+    for (int grp = 0; grp < kGroups; ++grp) {
       float acc[kTiles][4];
-      logits(acc, s_key[buf][grp][lane]);
-      accumulate(acc, val[4 * grp]);
+      logits(acc, s_key[grp][lane]);
+      accumulate(acc, val[4 * grp], grp, columns);
     }
 """
+# An off-diagonal pair's key loop (with the columns) and its flush to the accumulator.
+OFF_DIAGONAL = "        key_loop(std::true_type{});"
+COLUMN_FLUSH = "      if (j0 + r < n) red_add2(sb + 2 * (size_t)(j0 + r), cn, cd);\n"
 VARIANTS = {
     "release": [],
     "no_min_blocks": [NO_MIN_BLOCKS],
+    "min_blocks_3": [MIN3],
     "plain_loop": [(PIPELINED, PLAIN_LOOP)],
-    "plain_loop_no_min_blocks": [(PIPELINED, PLAIN_LOOP), NO_MIN_BLOCKS],
-    "warps4_tiles4": [W4, T4],
-    "warps4_tiles4_plain_loop": [W4, T4, (PIPELINED, PLAIN_LOOP)],
-    "warps4": [W4],
-    "tiles1": [T1],
-    "unroll_2": [(PIPELINED, PIPELINED.replace("#pragma unroll\n", "#pragma unroll 2\n"))],
+    "unroll_2": [(GROUP_LOOP, GROUP_LOOP.replace("unroll 4", "unroll 2"))],
+    "unroll_8": [(GROUP_LOOP, GROUP_LOOP.replace("unroll 4", "unroll 8"))],
+    "unroll_full": [(GROUP_LOOP, GROUP_LOOP.replace("unroll 4", "unroll"))],
+    # 8 warps of 2 row tiles (64 registers a thread, 32 warps an SM).
+    "warps8_tiles2": [W8, T2],
     # The fourth product lo.lo: what the dropped term costs and buys.
     "lolo": [(LO, LO.replace("bh0, bh1", "bl0, bl1") + LO)],
     # Diagnostics: one TF32 product instead of three; no mma (an FMUL a logit);
-    # no ex2 (w = the logit).
+    # no ex2 (w = the logit); no column sums in the key loop (the pairs off
+    # the diagonal run the diagonal's loop); no column flush to the accumulator.
     "diag_one_product": [(LO, ""), (HI_LO, "")],
     "diag_no_mma": [(LO, ""), (HI_LO, ""), (HI, HI.replace(
         "mma_tf32(acc[m], a_hi[m], bh0, bh1);",
         "\n      for (int e = 0; e < 4; ++e) acc[m][e] = __uint_as_float(a_hi[m][e]) * __uint_as_float(bh0);"))],
     "diag_no_ex2": [("  asm(\"ex2.approx.ftz.f32 %0, %1;\" : \"=f\"(y) : \"f\"(x));", "  y = x;")],
+    "diag_no_columns": [(OFF_DIAGONAL, OFF_DIAGONAL.replace("true_type", "false_type"))],
+    "diag_no_column_flush": [(COLUMN_FLUSH, "")],
 }
 # SASS opcodes counted in each kernel instance (the loop's units).
-OPCODES = ("HMMA", "MUFU.EX2", "FFMA", "FADD", "LDS", "STS", "BAR")
-GRIDS = (("davis", 96, 0.25), ("stv2", 128, 1 / 3))
+OPCODES = ("HMMA", "MUFU.EX2", "FFMA", "FADD", "SHFL", "LDS", "STS", "RED", "BAR")
+# name, images, height, width, xy scale (sxy 60 over the grid's scale).
+GRIDS = (("davis", 16, 96, 96, 0.25), ("stv2", 16, 128, 128, 1 / 3),
+         ("cell", 32, 128, 128, 1 / 3), ("480p", 1, 480, 854, 1.0))
+
+
+class DenseABI:
+    """A library of the dense design (no accumulators), called through the
+    current signature: the accumulators' pointers are dropped."""
+
+    def __init__(self, path: str):
+        self._lib = ctypes.CDLL(path)
+        p = ctypes.c_void_p
+        self._lib.rcf_crf_filter.argtypes = [p, p, p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, p]
+        self._lib.rcf_crf_filter.restype = ctypes.c_int
+
+    def rcf_crf_filter(self, feat, values, out, sums, done, b, n, d, stream):
+        return self._lib.rcf_crf_filter(feat, values, out, b, n, d, stream)
+
+
+def load_any(ck, so: str, src_dir: str | None = None):
+    """``so`` loaded under the current signature, whichever design built it."""
+    if src_dir is not None:
+        with open(os.path.join(src_dir, "crf.cu")) as f:
+            if "float* sums" not in f.read():
+                return DenseABI(so)
+    return ck.load_library(so)
 
 
 def main() -> int:
@@ -94,6 +135,7 @@ def main() -> int:
                     help="NAME=DIR: a source directory holding another crf.cu (repeatable)")
     ap.add_argument("--variants", default=",".join(VARIANTS))
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--grids", default=",".join(g[0] for g in GRIDS))
     ap.add_argument("--sass-dir", help="write each library's SASS (cuobjdump -sass) here")
     args = ap.parse_args()
 
@@ -120,7 +162,8 @@ def main() -> int:
                 print(f"{n}: build failed: {e}", flush=True)
     if not sos:
         return 1
-    libs = {n: ck.load_library(so) for n, so in sos.items()}
+    libs = {n: load_any(ck, so, os.path.abspath(bases[n]) if n in bases else None)
+            for n, so in sos.items()}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"device {smi}", flush=True)
@@ -164,24 +207,29 @@ def main() -> int:
     order = list(libs)
     turns = (order + order[::-1]) * args.rounds
     gen = torch.Generator(device="cuda").manual_seed(5)
-    for grid, hw, scale in GRIDS:
+    for grid, b, h, w, scale in GRIDS:
+        if grid not in args.grids.split(","):
+            continue
         def make():
-            f = cs.crf_features(torch, crf_ops, gen, 16, hw, hw, scale)
+            f = cs.crf_features(torch, crf_ops, gen, b, h, w, scale)
             return f, torch.rand(f.shape[:2], generator=gen, device="cuda")
         first = make()
         inputs = [first] + [make() for _ in range(cs.cold_sets(cs.nbytes(*first, first[1])) - 1)]
         fns = [lambda f=f, v=v: ck.crf_filter(f, v) for f, v in inputs]
-        bound_ms = cs.crf_bound(16, hw * hw, 5)[0]
+        dense_ms = cs.crf_bound(b, h * w, 5)[0]
+        schedule_ms = ck.schedule_pairs(b, h * w) / cs.EX2_PER_S * 1e3
+        iters = 50 if b * (h * w) ** 2 < 1e10 else 5
         # The SM clock and the power while the turns run, every 100 ms.
         smi_log = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
                                     "--format=csv,noheader,nounits", "-lms", "100"],
                                    stdout=subprocess.PIPE, text=True)
         for n in turns:
             ck._lib = libs[n]
-            ms = cs.graph_ms(torch, fns, iters=50)
+            ms = cs.graph_ms(torch, fns, iters=iters, reps=5 if iters > 5 else 2)
             report[n].setdefault(f"ms_{grid}", []).append(ms)
-            print(f"{grid:5s} {n:20s} {ms:.4f} ms device ({bound_ms / ms:.0%} of the bound "
-                  f"{bound_ms:.4f} ms)", flush=True)
+            print(f"{grid:5s} {n:20s} {ms:.4f} ms device ({dense_ms / ms:.0%} of the dense ex2 "
+                  f"floor {dense_ms:.4f} ms, {schedule_ms / ms:.0%} of the schedule's "
+                  f"{schedule_ms:.4f} ms)", flush=True)
         smi_log.terminate()
         samples = [[float(x) for x in ln.split(",")] for ln in smi_log.communicate()[0].splitlines()
                    if ln.count(",") == 1]
