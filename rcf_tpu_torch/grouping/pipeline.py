@@ -8,9 +8,15 @@ nearest to the 60x107 feature grid.
 
 DINO weights are a local checkpoint (torch format, the official
 ``dino_deitsmall8_300ep_pretrain.pth``) given by ``--dino-checkpoint`` or
-``DINO_CHECKPOINT``. Without one, ``DinoFeatures`` uses centred mean-colour
-patch features instead of a random ViT, as the JAX package does, and logs
-a warning: this is the tools' behaviour without weights, on any device.
+``DINO_CHECKPOINT``, or a ``DinoViT`` with given weights
+(``DinoFeatures(model=...)``). Without either, ``DinoFeatures`` uses centred
+mean-colour patch features instead of a random ViT, as the JAX package
+does, and logs a warning: this is the tools' behaviour without weights, on
+any device.
+
+A ViT forward is the span ``rcf.dino.forward``, each block's attention inside
+it ``rcf.dino.attention`` (``train/metrics.py``); ``grouping.STATS`` counts
+its frames, tokens and attention pairs.
 """
 
 from __future__ import annotations
@@ -19,10 +25,13 @@ import os
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..ops.resize import resize_bilinear, resize_nearest
 from ..utils import get_logger, resolve_device
+from ..utils.constants import device_constant
 from ..utils.precision import full_f32
+from . import STATS
 
 logger = get_logger()
 
@@ -56,19 +65,35 @@ DATA_ROOTS = {
 }
 
 
+def _imagenet(which: str) -> np.ndarray:
+    return IMAGENET_MEAN if which == "mean" else IMAGENET_STD
+
+
+def _attention_span():
+    return record_function("rcf.dino.attention")
+
+
 class DinoFeatures:
-    """DINO ViT last-attention key features of (480, 856)-resized frames, on ``device``."""
+    """DINO ViT last-attention key features of (480, 856)-resized frames, on ``device``.
+
+    ``model``: a ``nn.dino_vit.DinoViT`` with given weights, used in eval mode
+    on its own device and at its own patch size (``checkpoint``, ``arch``,
+    ``patch_size`` and ``device`` are then not read)."""
 
     def __init__(self, checkpoint: str | None = None, arch: str = "vit_small",
                  patch_size: int = 8, resize_imgs_size: tuple[int, int] = (480, 856),
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", model=None):
         from ..nn.dino_vit import get_dino_model
 
+        if model is not None:
+            patch_size, device = model.patch_size, next(model.parameters()).device
         self.device = resolve_device(device)
         self.patch_size, self.resize_imgs_size = patch_size, tuple(resize_imgs_size)
         self.grid_hw = (resize_imgs_size[0] // patch_size, resize_imgs_size[1] // patch_size)
         ckpt_path = checkpoint or os.environ.get("DINO_CHECKPOINT")
-        if ckpt_path and os.path.exists(ckpt_path):
+        if model is not None:
+            self.model = model.eval()
+        elif ckpt_path and os.path.exists(ckpt_path):
             # DINO, MoCo-v3 and MAE checkpoint layouts (get_dino_model).
             self.model, _ = get_dino_model(arch, patch_size, ckpt_path, self.device)
             logger.info(f"Loaded {arch} weights from {ckpt_path}")
@@ -93,21 +118,25 @@ class DinoFeatures:
     def __call__(self, imgs01: np.ndarray) -> torch.Tensor:
         """imgs01 [B, H, W, 3] float RGB in [0, 1] -> key features [B, N+1, D] on the device."""
         x = self.to_device(imgs01)
+        b, tokens = x.shape[0], self.grid_hw[0] * self.grid_hw[1] + 1
+        STATS["frames"] += b
+        STATS["tokens"] += b * tokens
         with full_f32():
-            if self.model is not None:
-                mean = torch.from_numpy(IMAGENET_MEAN).to(self.device)
-                std = torch.from_numpy(IMAGENET_STD).to(self.device)
-                x = (x - mean) / std
-            x = resize_bilinear(x, self.resize_imgs_size)
             if self.model is None:
-                return self._color_feats(x)
-            return self.model(x, return_last_k=True)
+                return self._color_feats(resize_bilinear(x, self.resize_imgs_size))
+            with record_function("rcf.dino.forward"):
+                mean = device_constant(_imagenet, ("mean",), self.device)
+                std = device_constant(_imagenet, ("std",), self.device)
+                x = resize_bilinear((x - mean) / std, self.resize_imgs_size)
+                STATS["attention_pairs"] += (b * self.model.blocks[0].attn.num_heads * tokens ** 2
+                                             * (self.model.depth - 1))
+                return self.model(x, return_last_k=True, attention_span=_attention_span)
 
     def to_device(self, x) -> torch.Tensor:
         """A numpy array or tensor as f32 on the device."""
         return torch.as_tensor(x).to(device=self.device, dtype=torch.float32)
 
     def mask_to_grid(self, mask) -> torch.Tensor:
-        """[H, W] -> the mask resized nearest to the feature grid, on the device."""
+        """[..., H, W] -> the masks resized nearest to the feature grid, on the device."""
         with full_f32():
-            return resize_nearest(self.to_device(mask)[None, ..., None], self.grid_hw)[0, ..., 0]
+            return resize_nearest(self.to_device(mask)[..., None], self.grid_hw)[..., 0]

@@ -12,13 +12,16 @@ official DINO state dict's (``patch_embed.proj``, ``blocks.{i}.norm1``,
 Position embeddings trained at ``train_grid``² are resized bicubically
 (torch's a = -0.75, with DINO's +0.1 offset on the scale factor) by
 matrices made in numpy, as in JAX. Attention is the plain form: product,
-softmax, product. Inputs are ``[B, H, W, 3]`` (ImageNet-normalized), as in
-JAX. The forward runs with TF32 off (``utils/precision.full_f32``): the
-keys feed a thresholded affinity.
+softmax, product; ``forward``'s ``attention_span`` (a context manager
+factory, the tools' profiler span) is entered around each block's, so that
+no span sits in this module. Inputs are ``[B, H, W, 3]``
+(ImageNet-normalized), as in JAX. The forward runs with TF32 off
+(``utils/precision.full_f32``): the keys feed a thresholded affinity.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import os
@@ -66,15 +69,18 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, dim * 3)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor, return_k: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_k: bool = False,
+                span=contextlib.nullcontext) -> torch.Tensor:
         b, n, d = x.shape
         hd = d // self.num_heads
         qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, hd)
         if return_k:
             return qkv[:, :, 1].reshape(b, n, d)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # [B, heads, N, hd]
-        attn = torch.softmax((q @ k.transpose(-2, -1)) * (hd ** -0.5), dim=-1)
-        return self.proj((attn @ v).transpose(1, 2).reshape(b, n, d))
+        with span():
+            attn = torch.softmax((q @ k.transpose(-2, -1)) * (hd ** -0.5), dim=-1)
+            out = attn @ v
+        return self.proj(out.transpose(1, 2).reshape(b, n, d))
 
 
 class Mlp(nn.Module):
@@ -95,10 +101,11 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x: torch.Tensor, return_k: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_k: bool = False,
+                span=contextlib.nullcontext) -> torch.Tensor:
         if return_k:
             return self.attn(self.norm1(x), return_k=True)
-        x = x + self.attn(self.norm1(x))
+        x = x + self.attn(self.norm1(x), span=span)
         return x + self.mlp(self.norm2(x))
 
 
@@ -140,9 +147,12 @@ class DinoViT(nn.Module):
             raise AssertionError(f"position grid {tuple(grid.shape[1:3])} != {(h0, w0)}")
         return torch.cat([cls_pe, grid.reshape(1, h0 * w0, self.embed_dim)], dim=1)
 
-    def forward(self, imgs: torch.Tensor, return_last_k: bool = False) -> torch.Tensor:
+    def forward(self, imgs: torch.Tensor, return_last_k: bool = False,
+                attention_span=contextlib.nullcontext) -> torch.Tensor:
         """imgs [B, H, W, 3] -> normed tokens [B, N+1, D], or the last block's
-        key features [B, N+1, D] with ``return_last_k``."""
+        key features [B, N+1, D] with ``return_last_k`` (whose last block runs
+        no attention). ``attention_span()`` is entered around each attention's
+        product, softmax and product."""
         with full_f32():
             b = imgs.shape[0]
             x = self.patch_embed.proj(imgs.permute(0, 3, 1, 2))  # [B, D, h0, w0]
@@ -153,7 +163,7 @@ class DinoViT(nn.Module):
             for i, blk in enumerate(self.blocks):
                 if return_last_k and i == self.depth - 1:
                     return blk(x, return_k=True)
-                x = blk(x)
+                x = blk(x, span=attention_span)
             return self.norm(x)
 
 

@@ -43,12 +43,19 @@ Span                            Where
 ``rcf.loop.checkpoint``         ``train/loop.py``: top-k or ``last`` save
 ``rcf.data.sample``             ``data/loader.py``: one sample, in a worker thread
 ``rcf.data.collate``            ``data/loader.py``: one batch, in the producer thread
+``rcf.dino.forward``            ``grouping/pipeline.py::DinoFeatures``: the ViT's
+                                normalisation, resize and forward
+``rcf.dino.attention``          inside ``rcf.dino.forward``: one a block that runs
+                                attention (product, softmax, product)
+``rcf.ncut.affinity``           ``grouping/ncut.py::build_affinity``
+``rcf.ncut.refine``             ``grouping/ncut.py::ncut_refine``: the Adam steps
 ==============================  ==============================================
 
-Counters: ``ops/crf.py::STATS`` (mean-field iterations, host syncs) and
+Counters: ``ops/crf.py::STATS`` (mean-field iterations, host syncs),
 ``parallel/dist.py::STATS`` (calls and payload bytes of each collective
-kind), each with ``reset_stats()``; a step's record holds its deltas of
-both (``crf_<key>``, ``dist_<key>``).
+kind) and ``grouping.STATS`` (the semantic constraint's frames, tokens,
+attention pairs and NCut steps), each with ``reset_stats()``; a step's
+record holds its deltas of the first two (``crf_<key>``, ``dist_<key>``).
 """
 
 from __future__ import annotations
@@ -67,7 +74,8 @@ SPANS = ("rcf.step", "rcf.step.crf_target", "rcf.crf_target.ema_forward", "rcf.c
          "rcf.step.update", "rcf.step.grad_allreduce", "rcf.step.optimizer",
          "rcf.step.ema_update") + DIST_SPANS + (
          "rcf.loop.loader_wait", "rcf.loop.to_device", "rcf.loop.log", "rcf.loop.visualize",
-         "rcf.loop.eval", "rcf.loop.checkpoint", "rcf.data.sample", "rcf.data.collate")
+         "rcf.loop.eval", "rcf.loop.checkpoint", "rcf.data.sample", "rcf.data.collate",
+         "rcf.dino.forward", "rcf.dino.attention", "rcf.ncut.affinity", "rcf.ncut.refine")
 
 
 class MetricsLogger:

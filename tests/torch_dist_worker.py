@@ -5,8 +5,9 @@
 Imports torch and ``rcf_tpu_torch`` only. Joins the group through
 ``init_distributed`` (``RCF_DIST=1`` with ``RANK``/``WORLD_SIZE`` and a
 ``file://`` rendezvous in ``<work_dir>``), reads ``<work_dir>/inputs.pt``
-(written by ``tests/test_torch_parallel.py``), runs every case in one
-order on every rank and writes ``<work_dir>/out_<rank>.pt``. The
+(written by ``tests/test_torch_parallel.py`` or another test), runs every
+case whose inputs it holds in one order on every rank and writes
+``<work_dir>/out_<rank>.pt``. The
 functions that run a case at one rank are the ones the test runs at world
 1 in its own process, so both sides run the same code.
 """
@@ -168,12 +169,13 @@ def main(work_dir: str) -> None:
                           timeout_s=120.0)
     try:
         inp = torch.load(os.path.join(work_dir, "inputs.pt"), weights_only=False)
-        cases = [("bn", bn_case, (inp["bn_x"], inp["bn_g"]))]
-        cases += [(name, step_case, (spec,)) for name, spec in inp["steps"].items()]
-        cases += [("unflow", unflow_case, inp["unflow"]), ("ratio", ratio_case, inp["ratio"]),
-                  ("eval", eval_case, (inp["eval"], work_dir)),
-                  ("checkpoint", checkpoint_case, (inp["checkpoint"], work_dir)),
-                  ("run", run_case, (inp["run"],))]
+        cases = [("bn", bn_case, (inp["bn_x"], inp["bn_g"]))] if "bn_x" in inp else []
+        cases += [(name, step_case, (spec,)) for name, spec in inp.get("steps", {}).items()]
+        cases += [(key, fn, args()) for key, fn, args in (
+            ("unflow", unflow_case, lambda: inp["unflow"]), ("ratio", ratio_case, lambda: inp["ratio"]),
+            ("eval", eval_case, lambda: (inp["eval"], work_dir)),
+            ("checkpoint", checkpoint_case, lambda: (inp["checkpoint"], work_dir)),
+            ("run", run_case, lambda: (inp["run"],))) if key in inp]
         out = {"rank": dist.rank(), "world": dist.world()}
         for name, fn, args in cases:
             t0 = time.perf_counter()

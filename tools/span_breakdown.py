@@ -43,64 +43,16 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH_DIR = os.path.join(ROOT, "port_bench")
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-RUNTIME_CATS = ("cuda_runtime", "cuda_driver")
-HOST_CATS = ("cpu_op", "user_annotation", "python_function") + RUNTIME_CATS
+if BENCH_DIR not in sys.path:
+    sys.path.insert(0, BENCH_DIR)
+
+# The trace's reading and the spans' device time are the benchmark's own.
+from harness.spans import captured, load, span_ms  # noqa: E402,F401
+from harness.spans import holds as _holds, owned as _owned  # noqa: E402
+
 SYNC_CALLS = ("cudaDeviceSynchronize", "cudaStreamSynchronize", "cudaEventSynchronize")
 STEP_CHILDREN = ("rcf.step.crf_target", "rcf.step.forward", "rcf.step.backward",
                  "rcf.step.update")
-
-
-def load(path: str) -> dict:
-    """The trace's device events, ``bench.*`` spans and host events as
-    ``port_bench/harness/trace.py::load`` keeps them (``rcf.*`` spans among the
-    host events there), and besides: the ``rcf.*`` spans, each device event's
-    and runtime call's ``correlation`` and each host event's thread."""
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    tr: dict = {"device": [], "spans": [], "host": [], "rcf": [], "launch": {}}
-    for e in events:
-        if e.get("ph") != "X" or "dur" not in e:
-            continue
-        cat, name = e.get("cat", ""), e.get("name", "")
-        row = {"name": name, "ts": float(e["ts"]), "dur": float(e["dur"]), "cat": cat,
-               "tid": e.get("tid"), "correlation": (e.get("args") or {}).get("correlation")}
-        if cat in DEVICE_CATS:
-            tr["device"].append(row)
-        elif cat == "user_annotation" and name.startswith("bench."):
-            tr["spans"].append(row)
-        elif cat in HOST_CATS:
-            tr["host"].append(row)
-            if cat == "user_annotation" and name.startswith("rcf."):
-                tr["rcf"].append(row)
-            if cat in RUNTIME_CATS and row["correlation"] is not None:
-                tr["launch"][row["correlation"]] = row
-    return tr
-
-
-def _holds(span: dict, t: float) -> bool:
-    return span["ts"] <= t <= span["ts"] + span["dur"]
-
-
-def _owned(tr: dict):
-    """Each device event with the names of the spans that hold the runtime call
-    that launched it (none where the trace has no such call)."""
-    spans = tr["rcf"] + tr["spans"]
-    for d in tr["device"]:
-        call = tr["launch"].get(d["correlation"])
-        yield d, ({s["name"] for s in spans if _holds(s, call["ts"])} if call else set())
-
-
-def span_ms(tr: dict) -> dict:
-    """Inclusive device ms of each ``rcf.*`` and ``bench.*`` span name over the
-    trace: each device event counted once in every span (of any thread) whose
-    interval holds the runtime call that launched it; a device event with no
-    runtime call in the trace counts in none."""
-    out = {s["name"]: 0.0 for s in tr["rcf"] + tr["spans"]}
-    for d, names in _owned(tr):
-        for name in names:
-            out[name] += d["dur"] * 1e-3
-    return out
 
 
 def span_group_ms(tr: dict) -> dict:
@@ -175,33 +127,6 @@ def breakdown(tr: dict, steps: int) -> dict:
             "coverage": children / whole if whole > 0 else None,
             "host_syncs": {k: v / steps for k, v in sorted(host_syncs(tr).items())},
             "idle_gaps": idle_gaps(tr)}
-
-
-@contextlib.contextmanager
-def captured():
-    """Inside the block, the harness's traced passes are kept: yields a dict that
-    gets the labelled pass's ``trace`` (this module's ``load``) and the device
-    pass's ``kernels`` (``port_bench/harness/trace.py::reduce``)."""
-    from harness import trace as harness_trace
-
-    got: dict = {}
-    load0, reduce0 = harness_trace.load, harness_trace.reduce
-
-    def load_both(path):
-        if path.endswith("_1.json"):
-            got["trace"] = load(path)
-        return load0(path)
-
-    def reduce_kept(tr):
-        out = reduce0(tr)
-        got["kernels"] = out["kernels"]
-        return out
-
-    harness_trace.load, harness_trace.reduce = load_both, reduce_kept
-    try:
-        yield got
-    finally:
-        harness_trace.load, harness_trace.reduce = load0, reduce0
 
 
 def cell_breakdown(got: dict, steps: int) -> dict:
