@@ -29,7 +29,11 @@ Phases, each timed:
                 TF32 matmuls on, on the DAVIS grid (16 x 96^2, D=5), i.i.d.
                 features, a ragged N (3 x 97 x 61), D=2 and the SegTrackv2
                 grid (16 x 128^2), each at its limit (``CRF_TOL``), which
-                also holds the kernel's distance to a float64 filter;
+                also holds the kernel's distance to a float64 filter; then
+                (``attention_kernel``) dino_attention against float64 at one
+                frame of the DINO cell (6 x 6,421 tokens of 64), at
+                moco_vit_small's head dim 32 and at ragged N (``ATTN_TOL``),
+                and the 11 launches of one ViT-S/8 call at 480 x 856;
 3. step       - three AMD training steps (ResNet-50 OS8 + FCN mask head +
                 PWC-Lite + unFlow loss, Adam) at batch 8 pairs of 384^2
                 frames, flow_size 384x640, random weights from a seed, in f32
@@ -101,7 +105,10 @@ Phases, each timed:
                 crf_filter on the DAVIS and (keys ``*_stv2``) SegTrackv2
                 grids beside its bound (an ex2 and two FP32 instructions a
                 pair; the ex2 unit binds) and
-                ``scaled_dot_product_attention`` computing the same filter.
+                ``scaled_dot_product_attention`` computing the same filter;
+                dino_attention at one block's call of the DINO cell (8 x 6 x
+                6,421 tokens of 64) and at head dim 32 (8 x 12 x 1,591) beside
+                its TF32 bound, its plain version and f32 SDPA.
 
 13. train_cli - the trainer through its entry point, ``rcf_tpu_torch.cli.main``,
                 in process: a synthetic set in the DAVIS layout written by the
@@ -1327,6 +1334,117 @@ def crf_timing(torch, ck, crf_ops, launches: dict, err: float) -> dict:
             f"{res['bound_ms'] / res['ms_device']:.0%} of it); plain {res['plain_ms']:.2f} ms; "
             f"library {res['library_ms']:.4f} ms, device {res['library_ms_device']:.4f} ms, "
             f"max_abs_err {res['library_max_abs_err']:.2e}, kernels {res['library_kernels']}")
+        row.update({k + suffix: v for k, v in res.items()})
+    return row
+
+
+# DINO's attention (``csrc/attention.cu``) against float64 on the card: the
+# largest |o - o64| over the largest |o64| of a call. The limit and its
+# reason: ``tests/test_torch_dino_attention.py::KERNEL_TOL`` (a single TF32
+# product reads ~5e-4). The plain version's own distance is logged beside.
+ATTN_TOL = 3e-5
+ATTN_REPLACES = "rcf_tpu/nn/dino_vit.py (Attention: product, softmax, product)"
+TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor rate
+ATTN_CELL = (8, 6421, 6, 64)  # one block's call in dino_vits8_f32.ncut_frames
+ATTN_MOCO = (8, 1591, 12, 32)  # moco_vit_small/16 at 480 x 856, 8 frames
+
+
+def attention_sets() -> dict:
+    """name -> (images, tokens, heads, hd, scale of q, k, v): one frame of the
+    DINO cell at two spreads of the scores, moco_vit_small's head dim, and
+    ragged N (under a key tile, around a warpgroup's and a block's rows) at
+    both head dims."""
+    sets = {"cell": (1, 6421, 6, 64, 1.0), "cell_sharp": (1, 6421, 6, 64, 2.0),
+            "moco": (1, 1591, 12, 32, 1.0)}
+    for n in (1, 63, 65, 129):
+        for hd in (32, 64):
+            sets[f"ragged_{n}_{hd}"] = (2, n, 3, hd, 2.0)
+    return sets
+
+
+def attention_qkv(torch, gen, b: int, n: int, heads: int, hd: int, scale: float = 1.0):
+    """A qkv linear's output as the ViT views it, [b, n, 3, heads, hd], N(0, scale^2)."""
+    x = torch.randn((b, n, 3 * heads * hd), generator=gen, device="cuda") * scale
+    return x.view(b, n, 3, heads, hd)
+
+
+def attention_gap(torch, ak, ours, qkv) -> float:
+    ref = ak.dino_attention_plain(qkv.double())
+    return float((ours.double() - ref).abs().max() / ref.abs().max())
+
+
+def phase_attention_kernel(torch, ak) -> dict:
+    """dino_attention against float64 on every set of ``attention_sets`` (limit
+    ``ATTN_TOL``), and the launches of one vit_small/8 call at 480 x 856 (its 11
+    blocks that run attention, one launch each)."""
+    from rcf_tpu_torch.nn import dino_vit
+    from rcf_tpu_torch.utils.precision import full_f32
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    gaps, plain = {}, {}
+    with torch.no_grad(), full_f32():
+        for name, (b, n, heads, hd, scale) in attention_sets().items():
+            qkv = attention_qkv(torch, gen, b, n, heads, hd, scale)
+            gaps[name] = attention_gap(torch, ak, ak.dino_attention(qkv), qkv)
+            plain[name] = attention_gap(torch, ak, ak.dino_attention_plain(qkv), qkv)
+            log(f"kernel dino_attention {name} {b}x{n}x{heads}x{hd}: gap to float64 "
+                f"{gaps[name]:.3e} (tol {ATTN_TOL}); plain f32 {plain[name]:.3e}")
+        vit = dino_vit.vit_small(patch_size=8, train_grid=28).cuda().eval()
+        ak.reset_launch_counts()
+        vit(torch.rand((1, 480, 856, 3), generator=gen, device="cuda"), return_last_k=True)
+        torch.cuda.synchronize()
+    launches = ak.LAUNCHES["dino_attention"]
+    failed = [name for name, gap in gaps.items() if not gap <= ATTN_TOL]
+    if failed or launches != 11:
+        raise RuntimeError(f"dino_attention: gap over {ATTN_TOL} on {failed}, or {launches} "
+                           f"launches for a ViT-S/8 call (11 blocks run attention)")
+    return {"gaps": gaps, "plain_gaps": plain, "launches_per_vit_call": launches}
+
+
+def attention_timing(torch, ak, checks: dict) -> dict:
+    """The dino_attention row: one block's call of the DINO cell (``ATTN_CELL``)
+    and, keys with ``_moco``, ``ATTN_MOCO``: ``ms``, ``plain_ms``, ``library_ms``
+    an eager loop on one input set; ``ms_device``, ``library_ms_device`` device
+    time on ``cold_sets`` input sets. The bound: the products' FLOPs at the dense
+    TF32 rate; ``split_bound_ms`` three times it (three TF32 products an f32
+    one). The library: f32 ``scaled_dot_product_attention`` on q, k, v made
+    contiguous beforehand, a yardstick the port never calls."""
+    import torch.nn.functional as F
+
+    from rcf_tpu_torch.utils.precision import full_f32
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    row = {"name": "dino_attention", "route": "cuda", "source": "rcf_tpu_torch/csrc/attention.cu",
+           "replaces": ATTN_REPLACES, "replaces_kind": "XLA code, not a TPU kernel",
+           "products": "wgmma.mma_async m64n32k8 / m64n{hd}k8 tf32, three a product (split TF32)",
+           "launches_per_vit_call": checks["launches_per_vit_call"], "gap": checks["gaps"]["cell"]}
+    for suffix, (b, n, heads, hd) in (("", ATTN_CELL), ("_moco", ATTN_MOCO)):
+        sets = [attention_qkv(torch, gen, b, n, heads, hd)]
+        sets += [attention_qkv(torch, gen, b, n, heads, hd)
+                 for _ in range(cold_sets(nbytes(sets[0])) - 1)]
+        libs = []
+        for qkv in sets:
+            q, k, v = (qkv[:, :, i].transpose(1, 2).contiguous() for i in range(3))
+            libs.append(lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v))
+        qkv = sets[0]
+        with torch.no_grad(), full_f32():
+            res = {"ms": cuda_ms(torch, lambda: ak.dino_attention(qkv)),
+                   "plain_ms": cuda_ms(torch, lambda: ak.dino_attention_plain(qkv), iters=2,
+                                       warmup=1),
+                   "library_ms": cuda_ms(torch, libs[0])}
+            res["ms_device"] = graph_ms(torch, [lambda x=x: ak.dino_attention(x) for x in sets])
+            res["library_ms_device"] = graph_ms(torch, libs)
+            res["library_kernels"] = traced_kernels(torch, libs[0])[:3]
+            res["kernels"] = traced_kernels(torch, lambda: ak.dino_attention(qkv))
+        del sets, libs
+        res["bound_ms"] = 4.0 * n * n * hd * b * heads / TF32_FLOPS * 1e3
+        res["split_bound_ms"] = 3 * res["bound_ms"]
+        log(f"timing dino_attention {b}x{n}x{heads}x{hd}: {res['ms']:.4f} ms, device "
+            f"{res['ms_device']:.4f} ms (TF32 bound {res['bound_ms']:.4f} ms, "
+            f"{res['bound_ms'] / res['ms_device']:.1%} of it; split {res['split_bound_ms']:.4f} "
+            f"ms); plain {res['plain_ms']:.2f} ms; library {res['library_ms']:.4f} ms, device "
+            f"{res['library_ms_device']:.4f} ms, kernels {res['library_kernels']}; "
+            f"ours {res['kernels']}")
         row.update({k + suffix: v for k, v in res.items()})
     return row
 
@@ -3089,6 +3207,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     try:
+        from rcf_tpu_torch.ops import attention_kernels as ak
         from rcf_tpu_torch.ops import crf as crf_ops
         from rcf_tpu_torch.ops import crf_kernels as ck
         from rcf_tpu_torch.ops import cuda_build
@@ -3109,19 +3228,20 @@ def main() -> int:
     t0 = time.perf_counter()
     # The release libraries and the test build that counts the overlap-add's
     # branches, one nvcc each, side by side.
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         count_so = pool.submit(wk.build_patched, wk.COUNT_TAPS, "count_taps")
         crf_so = pool.submit(ck.build)
+        attn_so = pool.submit(ak.build)
         so = wk.build()
         count_lib = wk.load_library(count_so.result())
-        crf_so = crf_so.result()
+        crf_so, attn_so = crf_so.result(), attn_so.result()
     phases["build"] = time.perf_counter() - t0
-    log(f"build: {phases['build']:.1f} s -> {so}, {crf_so}")
+    log(f"build: {phases['build']:.1f} s -> {so}, {crf_so}, {attn_so}")
     for r in wk.ptxas_report(so):
         log(f"  ptxas: {r['kernel']} {r['dtype']} C={r['c']}: {r.get('registers')} registers, "
             f"spill {r.get('spill_stores')}/{r.get('spill_loads')} bytes (stores/loads), "
             f"{r.get('smem')} bytes shared memory")
-    for r in cuda_build.ptxas_entries(crf_so):
+    for r in cuda_build.ptxas_entries(crf_so) + cuda_build.ptxas_entries(attn_so):
         log(f"  ptxas: {r['entry']}: {r.get('registers')} registers, spill "
             f"{r.get('spill_stores')}/{r.get('spill_loads')} bytes, {r.get('smem')} bytes shared")
 
@@ -3132,6 +3252,10 @@ def main() -> int:
     t0 = time.perf_counter()
     errs["crf_filter"] = phase_crf_kernel(torch, ck, crf_ops)["davis"]
     phases["crf_kernel"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    attn_checks = phase_attention_kernel(torch, ak)
+    phases["attention_kernel"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     _, step_ms = phase_step(torch, wk, torch.float32)
@@ -3179,6 +3303,8 @@ def main() -> int:
     rows = phase_timing(torch, wk, counts, errs)
     crf_launches = {p: rcf[p]["launches"]["crf_filter"] for p in ("rcf_step_crf",
                                                                  "rcf_step_crf_bf16")}
+    torch.cuda.empty_cache()
+    rows.append(attention_timing(torch, ak, attn_checks))
     rows.append(crf_timing(torch, ck, crf_ops, crf_launches, errs["crf_filter"]))
     phases["timing"] = time.perf_counter() - t0
 

@@ -11,10 +11,12 @@ official DINO state dict's (``patch_embed.proj``, ``blocks.{i}.norm1``,
 
 Position embeddings trained at ``train_grid``² are resized bicubically
 (torch's a = -0.75, with DINO's +0.1 offset on the scale factor) by
-matrices made in numpy, as in JAX. Attention is the plain form: product,
-softmax, product; ``forward``'s ``attention_span`` (a context manager
-factory, the tools' profiler span) is entered around each block's, so that
-no span sits in this module. Inputs are ``[B, H, W, 3]``
+matrices made in numpy, as in JAX. Attention is ``ops/attention_kernels.py::
+dino_attention`` on the ``qkv`` linear's output as it lies: the hand-written
+kernel on the card (forward only), the plain product, softmax, product on
+the CPU; ``forward``'s ``attention_span`` (a context manager factory, the
+tools' profiler span) is entered around each block's call, so that no span
+sits in this module. Inputs are ``[B, H, W, 3]``
 (ImageNet-normalized), as in JAX. The forward runs with TF32 off
 (``utils/precision.full_f32``): the keys feed a thresholded affinity.
 """
@@ -32,6 +34,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..ops.attention_kernels import dino_attention
 from ..utils.constants import device_constant
 from ..utils.platform import resolve_device
 from ..utils.precision import full_f32
@@ -76,11 +79,9 @@ class Attention(nn.Module):
         qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, hd)
         if return_k:
             return qkv[:, :, 1].reshape(b, n, d)
-        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # [B, heads, N, hd]
         with span():
-            attn = torch.softmax((q @ k.transpose(-2, -1)) * (hd ** -0.5), dim=-1)
-            out = attn @ v
-        return self.proj(out.transpose(1, 2).reshape(b, n, d))
+            out = dino_attention(qkv)  # [B, N, heads hd]
+        return self.proj(out)
 
 
 class Mlp(nn.Module):
@@ -151,8 +152,8 @@ class DinoViT(nn.Module):
                 attention_span=contextlib.nullcontext) -> torch.Tensor:
         """imgs [B, H, W, 3] -> normed tokens [B, N+1, D], or the last block's
         key features [B, N+1, D] with ``return_last_k`` (whose last block runs
-        no attention). ``attention_span()`` is entered around each attention's
-        product, softmax and product."""
+        no attention). ``attention_span()`` is entered around each block's
+        attention call."""
         with full_f32():
             b = imgs.shape[0]
             x = self.patch_embed.proj(imgs.permute(0, 3, 1, 2))  # [B, D, h0, w0]
