@@ -6,34 +6,17 @@
 
 Phases, each timed:
 
-1. build      - compile ``rcf_tpu_torch/csrc/*.cu`` with nvcc (sm_90a) into
-                ``rcf_tpu_torch/build/``, and, beside it (one nvcc each, side
-                by side), a test build that counts the taps of each branch of
-                the overlap-adds (``warp_kernels.COUNT_TAPS``);
-2. kernels    - each kernel against its plain PyTorch version on the card, at
-                the AMD level-0 shapes (B=8, 384x640), images in f32 and bf16;
-                warp_fwd and warp_bwd also at ragged shapes (B=3, H in {1,
-                13}, W in {1, 3, 77}, C in 1..5, pad "border" and "zeros",
-                f32 and bf16) at the same tolerances: threads past the edge, each
-                compiled channel count, the generic instance, the batch
-                boundary; splat and warp_bwd_dimg also on every set of
-                ``check_overlap_add`` (the level-0 i.i.d. and smooth flows,
-                gentle smooth flows whose taps all stay in their block's
-                shared-memory window, far flows that leave it and the image,
-                and the ragged shapes, with densities of other shapes than
-                the source), at the same tolerances, with the taps of each
-                branch (window, device memory) counted by the test build on
-                the same inputs: the far set must reach the device-memory
-                branch, the gentle smooth set only the window; then
-                (``crf_kernel``) crf_filter against its plain version with
-                TF32 matmuls on, on the DAVIS grid (16 x 96^2, D=5), i.i.d.
-                features, a ragged N (3 x 97 x 61), D=2 and the SegTrackv2
-                grid (16 x 128^2), each at its limit (``CRF_TOL``), which
-                also holds the kernel's distance to a float64 filter; then
-                (``attention_kernel``) dino_attention against float64 at one
-                frame of the DINO cell (6 x 6,421 tokens of 64), at
-                moco_vit_small's head dim 32 and at ragged N (``ATTN_TOL``),
-                and the 11 launches of one ViT-S/8 call at 480 x 856;
+1. kernels    - the kernels' card tests, in a subprocess, first:
+                ``python -m pytest --noconftest -m cuda`` on ``CARD_TESTS``
+                (each kernel against its plain version or float64 on the
+                card; ``tests/test_torch_warp_card.py``,
+                ``tests/test_torch_crf_card.py``,
+                ``tests/test_torch_dino_attention.py``); a failed case stops
+                the script;
+2. build      - the kernel libraries (``LIB`` of ``warp_kernels``,
+                ``crf_kernels``, ``attention_kernels``; the card tests built
+                them into ``rcf_tpu_torch/build/``) and the compiler's report
+                of each instance: registers, spills, shared memory;
 3. step       - three AMD training steps (ResNet-50 OS8 + FCN mask head +
                 PWC-Lite + unFlow loss, Adam) at batch 8 pairs of 384^2
                 frames, flow_size 384x640, random weights from a seed, in f32
@@ -200,35 +183,24 @@ import concurrent.futures
 import copy
 import json
 import math
+import os
 import subprocess
 import sys
 import time
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+import kernel_sets as ks  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 F32_FLOPS = 67e12           # H100 SXM float32 rate outside the tensor cores
 L2_BYTES = 50 * 2**20       # H100 SXM L2
 
-B, H, W, C = 8, 384, 640, 3  # AMD level 0: 8 pairs, flow_size 384x640, RGB
+B, H, W, C = ks.B, ks.H, ks.W, ks.C  # AMD level 0: 8 pairs, flow_size 384x640, RGB
 STEPS = 3
+# The kernels' card tests, which run first, in a subprocess.
+CARD_TESTS = ("tests/test_torch_warp_card.py", "tests/test_torch_crf_card.py",
+              "tests/test_torch_dino_attention.py")
 
-# Kernel vs plain version on the card (same inputs, f32 arithmetic in both):
-TOL = {
-    # f32 output, same 4-tap arithmetic; contraction (FMA) order may differ.
-    ("warp_fwd", "float32"): 1e-5,
-    # bf16 output: both round one f32 value; at most one bf16 ulp (2^-7 at 1.0) apart.
-    ("warp_fwd", "bfloat16"): 1e-2,
-    # f32 sums over 3 channels of products of O(1) terms.
-    ("warp_bwd", "float32"): 1e-4,
-    ("warp_bwd", "bfloat16"): 1e-4,
-    # dimg: f32 atomics in a run-dependent order, |g| < 1, a few taps per pixel;
-    # dcx, dcy as warp_bwd (flow-valued C=2 maps reach |img| ~ 10: 1e-4 still).
-    ("warp_bwd_dimg", "float32"): 1e-4,
-    # bf16 dimg: both round an f32 sum (equal to ~1e-6) to bf16, so they are at
-    # most one bf16 ulp apart: 2^-4 for |dimg| < 16. dcx, dcy stay f32 (1e-4).
-    ("warp_bwd_dimg", "bfloat16"): 2.0**-4,
-    # f32 atomics in an order that changes from run to run; densities O(1).
-    ("splat", "float32"): 1e-4,
-}
 # Card vs CPU (TF32 off), each reading beside its limit:
 # - the AMD forward's loss relative to its scale and the mask probabilities
 #   (an occlusion pixel flipping moves the loss ~1e-5);
@@ -387,30 +359,6 @@ def rcf_train_cfg(recipe: str, **kw) -> dict:
     return dict(RCF_RECIPES[recipe]["train"], model_kwargs=rcf_model_kwargs(recipe, **kw))
 
 
-def level0_inputs(torch, dtype, gen, scale=5.0, b=B, h=H, w=W, c=C, smooth=False,
-                  smooth_scale=8.0):
-    """img [b,h,w,c] in [0,1), non-integer absolute coords cx, cy [b,h,w] f32.
-
-    The flow is i.i.d. N(0, scale^2) per pixel, or, with ``smooth``,
-    N(0, smooth_scale^2) drawn at (h/4, w/4) and bilinearly upsampled x4, as
-    the step's flows are predicted at a quarter of the resolution and upsampled.
-    """
-    import torch.nn.functional as F
-
-    dev = "cuda"
-    img = torch.rand(b, h, w, c, generator=gen, device=dev).to(dtype)
-    if smooth:
-        fl = torch.randn(b, 2, max(h // 4, 1), max(w // 4, 1), generator=gen,
-                         device=dev) * smooth_scale
-        fl = F.interpolate(fl, size=(h, w), mode="bilinear", align_corners=True)
-        fl = fl.permute(0, 2, 3, 1)
-    else:
-        fl = torch.randn(b, h, w, 2, generator=gen, device=dev) * scale
-    ys = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
-    xs = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
-    return img, xs + fl[..., 0], ys + fl[..., 1]
-
-
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -488,229 +436,16 @@ def bound(n_bytes: int, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_kernels(torch, wk, count_lib) -> dict:
-    """Each kernel vs its plain version at the level-0 shapes, then the
-    overlap-adds on every branch (``check_overlap_add``); returns the level-0
-    f32 max errors."""
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        dn = str(dtype).split(".")[1]
-        img, cx, cy = level0_inputs(torch, dtype, gen)
-        cxb, cyb = cx.clamp(0, W - 1), cy.clamp(0, H - 1)
-        _, cxz, cyz = level0_inputs(torch, dtype, gen, scale=9.0)
-        e_fwd = 0.0
-        for x, y in ((cxb, cyb), (cxz, cyz)):  # border (pre-clamped) and zeros
-            out = wk.warp_fwd(img, x, y)
-            torch.cuda.synchronize()
-            e_fwd = max(e_fwd, max_err(out, wk.warp_fwd_plain(img, x, y)))
-        g = torch.randn(B, H, W, C, generator=gen, device="cuda").to(dtype)
-        dcx, dcy = wk.warp_bwd(img, cxb, cyb, g)
-        torch.cuda.synchronize()
-        pcx, pcy = wk.warp_bwd_plain(img, cxb, cyb, g)
-        e_bwd = max(max_err(dcx, pcx), max_err(dcy, pcy))
-        log(f"kernel warp_fwd {dn}: max_abs_err {e_fwd:.3e} (tol {TOL[('warp_fwd', dn)]})")
-        log(f"kernel warp_bwd {dn}: max_abs_err {e_bwd:.3e} (tol {TOL[('warp_bwd', dn)]})")
-        if not (e_fwd <= TOL[("warp_fwd", dn)] and e_bwd <= TOL[("warp_bwd", dn)]):
-            raise RuntimeError(f"warp kernels disagree with their plain versions in {dn}")
-        if dtype == torch.float32:
-            errs["warp_fwd"], errs["warp_bwd"] = e_fwd, e_bwd
-    check_warp_ragged(torch, wk, gen)
-    errs["warp_bwd_dimg"] = check_warp_bwd_dimg(torch, wk, gen)
-    # The splat sees both flow directions batched: 2B maps.
-    _, tx, ty = level0_inputs(torch, torch.float32, gen, b=2 * B)
-    dens = wk.splat(tx, ty, H, W)
-    torch.cuda.synchronize()
-    e_splat = max_err(dens, wk.splat_plain(tx, ty, H, W))
-    log(f"kernel splat float32: max_abs_err {e_splat:.3e} (tol {TOL[('splat', 'float32')]})")
-    if not e_splat <= TOL[("splat", "float32")]:
-        raise RuntimeError("splat kernel disagrees with its plain version")
-    errs["splat"] = e_splat
-    failed = [f"{r['kernel']} {r['set']} {r['case']}: {r['err']:.3e} (tol {r['tol']})"
-              for r in check_overlap_add(torch, wk, gen, count_lib) if not r["err"] <= r["tol"]]
-    if failed:
-        raise RuntimeError("the overlap-add kernels disagree with their plain versions: "
-                           + "; ".join(failed[:10]))
-    return errs
-
-
-RAGGED_B, RAGGED_H, RAGGED_W, RAGGED_C = 3, (1, 13), (1, 3, 77), (1, 2, 3, 4, 5)
-
-
-def check_warp_ragged(torch, wk, gen) -> None:
-    """warp_fwd and warp_bwd vs their plain versions at ragged shapes, at the
-    level-0 tolerances: widths and heights that are no multiple of the 32 x 8
-    tile (threads past the image return), each compiled channel count (1-4)
-    and the generic instance (5), three planes (the batch boundary), f32 and
-    bf16, pad "border" (coordinates clamped) and "zeros" (unclamped, taps
-    leave the image)."""
-    worst, failed = {}, []
-    for dtype in (torch.float32, torch.bfloat16):
-        dn = str(dtype).split(".")[1]
-        for h in RAGGED_H:
-            for w in RAGGED_W:
-                for c in RAGGED_C:
-                    img, cx, cy = level0_inputs(torch, dtype, gen, scale=2.0, b=RAGGED_B, h=h,
-                                                w=w, c=c)
-                    g = torch.randn(RAGGED_B, h, w, c, generator=gen, device="cuda").to(dtype)
-                    for pad, (x, y) in (("zeros", (cx, cy)),
-                                        ("border", (cx.clamp(0, w - 1), cy.clamp(0, h - 1)))):
-                        out = wk.warp_fwd(img, x, y)
-                        dcx, dcy = wk.warp_bwd(img, x, y, g)
-                        torch.cuda.synchronize()
-                        pcx, pcy = wk.warp_bwd_plain(img, x, y, g)
-                        e = {"warp_fwd": max_err(out, wk.warp_fwd_plain(img, x, y)),
-                             "warp_bwd": max(max_err(dcx, pcx), max_err(dcy, pcy))}
-                        for k, v in e.items():
-                            worst[(k, dn)] = max(worst.get((k, dn), 0.0), v)
-                            if not v <= TOL[(k, dn)]:
-                                failed.append(f"{k} {dn} {RAGGED_B}x{h}x{w}x{c} {pad}: {v:.3e}")
-    log("kernel ragged (B=3, H in {1,13}, W in {1,3,77}, C in 1..5, both pads): max_abs_err "
-        + ", ".join(f"{k} {dn} {v:.3e} (tol {TOL[(k, dn)]})" for (k, dn), v in worst.items()))
-    if failed:
-        raise RuntimeError("warp kernels disagree with their plain versions at ragged shapes: "
-                           + "; ".join(failed[:10]))
-
-
-def check_warp_bwd_dimg(torch, wk, gen) -> float:
-    """warp_bwd_dimg vs its plain version: C=2 (a flow, as the system calls it)
-    and C=3, f32 and bf16, pad="zeros" (coordinates unclamped, some outside)
-    and "border" (clamped). Returns the largest f32 error."""
-    err_f32 = 0.0
-    for c in (2, 3):
-        for dtype in (torch.float32, torch.bfloat16):
-            dn = str(dtype).split(".")[1]
-            fl = torch.randn(B, H, W, 2, generator=gen, device="cuda") * 5.0
-            img = (fl * 2.0 if c == 2 else torch.rand(B, H, W, 3, generator=gen, device="cuda"))
-            img = img.to(dtype)
-            _, cx, cy = level0_inputs(torch, dtype, gen, scale=9.0)
-            g = (torch.rand(B, H, W, c, generator=gen, device="cuda") * 2 - 1).to(dtype)
-            for pad, (x, y) in (("zeros", (cx, cy)),
-                                ("border", (cx.clamp(0, W - 1), cy.clamp(0, H - 1)))):
-                ours = wk.warp_bwd_dimg(img, x, y, g)
-                torch.cuda.synchronize()
-                plain = wk.warp_bwd_dimg_plain(img, x, y, g)
-                e = [max_err(a, b_) for a, b_ in zip(ours, plain)]
-                log(f"kernel warp_bwd_dimg C={c} {dn} {pad}: max_abs_err dimg {e[0]:.3e} "
-                    f"(tol {TOL[('warp_bwd_dimg', dn)]}), dcx {e[1]:.3e}, dcy {e[2]:.3e} "
-                    f"(tol {TOL[('warp_bwd', 'float32')]})")
-                if not (e[0] <= TOL[("warp_bwd_dimg", dn)]
-                        and max(e[1:]) <= TOL[("warp_bwd", "float32")]):
-                    raise RuntimeError(f"warp_bwd_dimg disagrees with its plain version "
-                                       f"(C={c}, {dn}, {pad})")
-                if dtype == torch.float32:
-                    err_f32 = max(err_f32, *e)
-    return err_f32
-
-
-def far_coords(torch, gen, b=B, h=H, w=W):
-    """Coordinates of i.i.d. N(0, 40^2) flows, one pixel in ten moved 10^6 px
-    left or right and another one in ten up or down: many taps land outside a
-    block's window (the device-memory branch) or outside the image."""
-    _, x, y = level0_inputs(torch, torch.float32, gen, scale=40.0, b=b, h=h, w=w, c=1)
-    for t in (x, y):
-        far = torch.rand(t.shape, generator=gen, device="cuda") < 0.1
-        sign = torch.randint(0, 2, t.shape, generator=gen, device="cuda") * 2.0 - 1.0
-        t.copy_(torch.where(far, t + 1e6 * sign, t))
-    return x, y
-
-
-def overlap_add_sets(torch, gen):
-    """The sets of ``check_overlap_add``: name -> (b, h, w, make() -> (cx, cy)).
-
-    ``iid``: the level-0 timing flows (i.i.d. N(0, 5^2)); ``smooth``: gentle
-    smooth flows (N(0, 2^2) at a quarter of the resolution, upsampled), whose
-    taps all fall in their block's window; ``smooth8``: the timing's smooth
-    flows (N(0, 8^2)); ``far``: ``far_coords``; ``ragged``: B=3, H in {1, 13},
-    W in {1, 3, 77}, i.i.d. N(0, 2^2) (tiles past the edge, rows that are no
-    multiple of 4 floats, so each row's head and tail quads)."""
-    def level0(**kw):
-        return lambda b=B, h=H, w=W: level0_inputs(torch, torch.float32, gen, b=b, h=h, w=w,
-                                                   c=1, **kw)[1:]
-
-    sets = {"iid": (B, H, W, level0()), "smooth": (B, H, W, level0(smooth=True, smooth_scale=2.0)),
-            "smooth8": (B, H, W, level0(smooth=True)),
-            "far": (B, H, W, lambda b=B, h=H, w=W: far_coords(torch, gen, b, h, w))}
-    for h in RAGGED_H:
-        for w in RAGGED_W:
-            sets[f"ragged {RAGGED_B}x{h}x{w}"] = (RAGGED_B, h, w, level0(scale=2.0))
-    return sets
-
-
-def check_overlap_add(torch, wk, gen, count_lib) -> list:
-    """splat and warp_bwd_dimg against their plain versions on every set of
-    ``overlap_add_sets``, at the level-0 tolerances: warp_bwd_dimg at C = 2, 3
-    (C = 1..5 on the ragged sets: every compiled channel count and the generic
-    instance), f32 and bf16, pad "zeros" and, where few taps pile up on the
-    image's edge (``iid``, ``smooth``, ragged), "border"; the splat over 2B maps
-    (B on the ragged sets) into the source shape and, on the ragged sets, into
-    (h + 5, 2w + 1) and (h/2, w/3) as well. The taps of each branch come from
-    ``count_lib``, the test build (``wk.COUNT_TAPS``), on the same inputs: the
-    ``far`` set must reach the device-memory branch of both kernels, the
-    ``smooth`` set the window alone. Returns one row per comparison."""
-    release = wk._lib
-    rows, branches = [], {}
-
-    def count(kernel, name, fn):
-        wk._lib = count_lib
-        try:
-            wk.tap_counts(count_lib)
-            fn()
-            torch.cuda.synchronize()
-            got = wk.tap_counts(count_lib)
-        finally:
-            wk._lib = release
-        old = branches.get((kernel, name), (0, 0))
-        branches[(kernel, name)] = (old[0] + got[0], old[1] + got[1])
-
-    for name, (b, h, w, make) in overlap_add_sets(torch, gen).items():
-        ragged = name.startswith("ragged")
-        for dtype in (torch.float32, torch.bfloat16):
-            dn = str(dtype).split(".")[1]
-            for c in (RAGGED_C if ragged else (2, 3)):
-                cx, cy = make(b=b, h=h, w=w)
-                img = (torch.randn(b, h, w, c, generator=gen, device="cuda") * 5).to(dtype)
-                g = (torch.rand(b, h, w, c, generator=gen, device="cuda") * 2 - 1).to(dtype)
-                pads = [("zeros", (cx, cy))]
-                if name in ("iid", "smooth") or ragged:
-                    # Clamped far-out coordinates pile up on the edge: the "far" and
-                    # "smooth8" sums there pass 16, where one bf16 ulp is above TOL.
-                    pads.append(("border", (cx.clamp(0, w - 1), cy.clamp(0, h - 1))))
-                for pad, (x, y) in pads:
-                    ours = wk.warp_bwd_dimg(img, x, y, g)
-                    torch.cuda.synchronize()
-                    e = [max_err(a, p) for a, p in zip(ours, wk.warp_bwd_dimg_plain(img, x, y, g))]
-                    case = f"C={c} {dn} {pad}"
-                    rows.append({"kernel": "warp_bwd_dimg", "set": name, "case": case,
-                                 "err": e[0], "tol": TOL[("warp_bwd_dimg", dn)]})
-                    rows.append({"kernel": "warp_bwd_dimg dcx/dcy", "set": name, "case": case,
-                                 "err": max(e[1:]), "tol": TOL[("warp_bwd", "float32")]})
-                    count("warp_bwd_dimg", name, lambda: wk.warp_bwd_dimg(img, x, y, g))
-        maps = b if ragged else 2 * B
-        tx, ty = make(b=maps, h=h, w=w)
-        outs = ((h, w), (h + 5, 2 * w + 1), (max(h // 2, 1), max(w // 3, 1))) if ragged else ((h, w),)
-        for oh, ow in outs:
-            dens = wk.splat(tx, ty, oh, ow)
-            torch.cuda.synchronize()
-            rows.append({"kernel": "splat", "set": name, "case": f"out {oh}x{ow}",
-                         "err": max_err(dens, wk.splat_plain(tx, ty, oh, ow)),
-                         "tol": TOL[("splat", "float32")]})
-            count("splat", name, lambda: wk.splat(tx, ty, oh, ow))
-    worst = {}
-    for r in rows:
-        key = (r["kernel"], r["set"].split(" ")[0], r["case"].split(" ")[1]
-               if r["kernel"].startswith("warp") else "float32")
-        worst[key] = max(worst.get(key, 0.0), r["err"])
-    log("kernel overlap-add sets, max_abs_err: " + ", ".join(
-        f"{k} {s} {dn} {v:.3e}" for (k, s, dn), v in worst.items()))
-    log("kernel overlap-add taps (shared window / device memory), test build: " + ", ".join(
-        f"{k} {s} {n[0]}/{n[1]}" for (k, s), n in branches.items()))
-    for k in ("splat", "warp_bwd_dimg"):
-        if branches[(k, "far")][1] == 0:
-            raise RuntimeError(f"{k}: the far set reached no device-memory tap")
-        if branches[(k, "smooth")][1] != 0 or branches[(k, "smooth")][0] == 0:
-            raise RuntimeError(f"{k}: the smooth set left the shared window")
-    return rows
+def phase_kernels() -> None:
+    """The kernels' card tests (``CARD_TESTS``) in a subprocess; raises if one fails."""
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda", "-q",
+           "-p", "no:cacheprovider", *CARD_TESTS]
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True)
+    log(proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else "kernels: no output")
+    if proc.returncode != 0:
+        raise RuntimeError("the kernels' card tests failed:\n" + proc.stdout[-6000:]
+                           + proc.stderr[-2000:])
 
 
 def phase_step(torch, wk, dtype) -> tuple[dict, float]:
@@ -918,23 +653,11 @@ def rcf_batch(torch, gen, b: int, hw: int, dev: str) -> dict:
             "gt_bw_flows": torch.randn(b, 1, hw, hw, 2, generator=gen, device=dev) * 5.0}
 
 
-def crf_frames(torch, gen, n: int, hw: int, dev: str, block: int = 32):
-    """n normalized frames [n, hw, hw, 3] with flat colour regions and edges:
-    N(0, 1) colours on blocks of block^2 pixels, plus N(0, 0.05^2) (about 3
-    uint8 levels) of noise. The mean field runs several iterations on such
-    content (1-16 measured on the card); on i.i.d. noise frames it stops
-    after one or two."""
-    cells = -(-hw // block)
-    c = torch.randn(n, cells, cells, 3, generator=gen, device=dev)
-    x = c.repeat_interleave(block, 1).repeat_interleave(block, 2)[:, :hw, :hw]
-    return x + 0.05 * torch.randn(n, hw, hw, 3, generator=gen, device=dev)
-
-
 def rcf_crf_batch(torch, gen, b: int, hw: int, dev: str) -> dict:
     """A stage-2.1 batch: ``rcf_batch`` with ``crf_frames`` as the frames, and the
     object channel 0 set (the YAMLs' ``object_channel: 0``)."""
     batch = rcf_batch(torch, gen, b, hw, dev)
-    batch["imgs"] = crf_frames(torch, gen, 2 * b, hw, dev).reshape(b, 2, hw, hw, 3)
+    batch["imgs"] = ks.crf_frames(gen, 2 * b, hw).reshape(b, 2, hw, hw, 3)
     return dict(batch, object_channel=0, object_channel_set=True)
 
 
@@ -1153,20 +876,6 @@ def phase_rcf_reference(torch) -> dict:
     return errs
 
 
-# crf_filter against its plain version on the card, with TF32 matmuls and
-# convolutions switched on (neither side may depend on the switch), each set
-# with its limit on the max abs error (the filtered values lie in [0, 1]).
-# Each logit cancels half-norms of ~1e3 (srgb 5), so both sides carry ~1e-4
-# of f32 rounding in it; on the structured sets each side reads <= 3.6e-5
-# from a float64 filter, <= 5.0e-5 from the other (first chip run, an H100
-# 80GB HBM3 at 700 W);
-# the i.i.d. set, whose pixels have few near neighbours, reads up to 1.4e-4
-# from float64 on the CPU. The kernel's split-TF32 logits of centred
-# features read <= 1.5e-5 from float64 on the structured sets and 3.6e-5 on
-# the i.i.d. one, 1.4e-4 from the plain version there (an H100 80GB HBM3 at
-# 700 W).
-# The same limit holds each set's distance, kernel to a float64 filter.
-CRF_TOL = {"davis": 2e-4, "iid": 1e-3, "ragged": 2e-4, "d2": 2e-4, "stv2": 2e-4}
 # The filter's least work by the card's units, whatever the route: one ex2 a
 # pair on the multi-function unit (16 per SM and clock, against 128 FP32
 # lanes doing two flops each) and two FP32 instructions a pair for the sums
@@ -1188,86 +897,6 @@ def crf_bound(b: int, n: int, d: int) -> tuple[float, str, str]:
     if t_bytes >= max(t_ex2, t_fp32):
         return t_bytes, "bytes", "device memory"
     return max(t_ex2, t_fp32), "operations", "ex2" if t_ex2 >= t_fp32 else "fp32"
-
-
-def crf_features(torch, crf_ops, gen, b: int, h: int, w: int, scale: float):
-    """Appearance features [b, h*w, 5] of ``crf_frames`` (blocks of 8 pixels on
-    the grid, as 32 on the 384^2 frames) at the recipes' sxy 60 and srgb 5,
-    with the grid's ``xy_scale``; features of i.i.d. colours where ``h`` is 0."""
-    rgb = crf_ops.unnormalize_to_uint8(crf_frames(torch, gen, b, max(h, w), "cuda", block=8))
-    return crf_ops.pixel_features(rgb[:, :h, :w].contiguous(), 60.0, 5.0, (scale, scale))
-
-
-def crf_filter_sets(torch, crf_ops, gen) -> dict:
-    """name -> (feat, values) of the kernel phase: the DAVIS grid (16 images of
-    96^2, xy_scale 1/4), i.i.d. features at its scales (x, y in [0, 96/15),
-    colours / 5 in [0, 51)), a ragged N (3 images of 97 x 61), D = 2 (xy
-    features at sxy 3 on 96^2) and the SegTrackv2 grid (16 of 128^2, 1/3)."""
-    n = 96 * 96
-    iid = torch.cat([torch.rand(16, n, 2, generator=gen, device="cuda") * (96 / 15),
-                     torch.rand(16, n, 3, generator=gen, device="cuda") * 51.0], dim=-1)
-    feats = {"davis": crf_features(torch, crf_ops, gen, 16, 96, 96, 0.25), "iid": iid,
-             "ragged": crf_features(torch, crf_ops, gen, 3, 97, 61, 0.25),
-             "d2": crf_ops.xy_features(96, 96, 3.0, device="cuda").expand(16, -1, -1).contiguous(),
-             "stv2": crf_features(torch, crf_ops, gen, 16, 128, 128, 1 / 3)}
-    return {k: (f, torch.rand(f.shape[:2], generator=gen, device="cuda")) for k, f in feats.items()}
-
-
-def crf_filter_f64(torch, feat, values, chunk: int = 512):
-    """The filter in float64 (exp of exact-enough logits): the accuracy yardstick."""
-    f, v = feat.double(), values.double()
-    sq = (f * f).sum(-1) * 0.5
-    out = []
-    for c in range(0, f.shape[1], chunk):
-        w = torch.exp(f[:, c:c + chunk] @ f.transpose(1, 2) - sq[:, None, :]
-                      - sq[:, c:c + chunk, None])
-        out.append((w * v[:, None, :]).sum(-1) / w.sum(-1))
-    return torch.cat(out, dim=1).float()
-
-
-def crf_kernel_readings(torch, ck, crf_ops) -> dict:
-    """name -> (kernel to plain, kernel to float64, plain to float64): the max abs
-    errors of crf_filter on every set of ``crf_filter_sets``, TF32 on."""
-    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
-    try:
-        gen = torch.Generator(device="cuda").manual_seed(4)
-        out = {}
-        for name, (feat, vals) in crf_filter_sets(torch, crf_ops, gen).items():
-            got = ck.crf_filter(feat, vals)
-            torch.cuda.synchronize()
-            plain = ck.crf_filter_plain(feat, vals)
-            exact = crf_filter_f64(torch, feat, vals)
-            out[name] = (max_err(got, plain), max_err(got, exact), max_err(plain, exact))
-        return out
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-
-
-def crf_kernel_failures(readings: dict) -> list:
-    """The sets whose kernel is farther than ``CRF_TOL`` from the plain version
-    or from float64 (the latter marked ``(float64)``)."""
-    failed = []
-    for name, (to_plain, to_f64, _) in readings.items():
-        if not to_plain <= CRF_TOL[name]:
-            failed.append(name)
-        if not to_f64 <= CRF_TOL[name]:
-            failed.append(f"{name} (float64)")
-    return failed
-
-
-def phase_crf_kernel(torch, ck, crf_ops) -> dict:
-    """crf_filter against crf_filter_plain and against a float64 filter on every
-    set of ``crf_filter_sets``, TF32 on, each at the set's ``CRF_TOL``; the plain
-    version's distance to float64 is logged. Returns the errors to the plain."""
-    readings = crf_kernel_readings(torch, ck, crf_ops)
-    for name, (to_plain, to_f64, plain_f64) in readings.items():
-        log(f"kernel crf_filter {name}: max_abs_err {to_plain:.3e} (tol {CRF_TOL[name]}); from "
-            f"float64: kernel {to_f64:.3e} (tol {CRF_TOL[name]}), plain {plain_f64:.3e}")
-    failed = crf_kernel_failures(readings)
-    if failed:
-        raise RuntimeError(f"crf_filter disagrees with its plain version or float64 on {failed}")
-    return {name: r[0] for name, r in readings.items()}
 
 
 def crf_sdpa(torch, feat, values):
@@ -1301,7 +930,7 @@ def traced_kernels(torch, fn) -> list:
     return [e.key for e in evts]
 
 
-def crf_timing(torch, ck, crf_ops, launches: dict, err: float) -> dict:
+def crf_timing(torch, ck, launches: dict) -> dict:
     """The crf_filter row: at the DAVIS grid (16 x 96^2, D = 5) and, keys with
     ``_stv2``, the SegTrackv2 grid (16 x 128^2): ``ms``, ``plain_ms``,
     ``library_ms`` an eager loop on one input set, ``ms_device``,
@@ -1310,11 +939,10 @@ def crf_timing(torch, ck, crf_ops, launches: dict, err: float) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(5)
     row = {"name": "crf_filter", "route": "cuda", "source": "rcf_tpu_torch/csrc/crf.cu",
            "replaces": CRF_REPLACES, "replaces_kind": "XLA code, not a TPU kernel",
-           "launches": sum(launches.values()), "launches_per_step": launches,
-           "max_abs_err": err}
+           "launches": sum(launches.values()), "launches_per_step": launches}
     for suffix, hw, scale in (("", 96, 0.25), ("_stv2", 128, 1 / 3)):
         def make():
-            f = crf_features(torch, crf_ops, gen, 16, hw, hw, scale)
+            f = ks.crf_features(gen, 16, hw, hw, scale)
             return f, torch.rand(f.shape[:2], generator=gen, device="cuda")
         feat, vals = make()
         lib = crf_sdpa(torch, feat, vals)
@@ -1338,70 +966,13 @@ def crf_timing(torch, ck, crf_ops, launches: dict, err: float) -> dict:
     return row
 
 
-# DINO's attention (``csrc/attention.cu``) against float64 on the card: the
-# largest |o - o64| over the largest |o64| of a call. The limit and its
-# reason: ``tests/test_torch_dino_attention.py::KERNEL_TOL`` (a single TF32
-# product reads ~5e-4). The plain version's own distance is logged beside.
-ATTN_TOL = 3e-5
 ATTN_REPLACES = "rcf_tpu/nn/dino_vit.py (Attention: product, softmax, product)"
 TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor rate
 ATTN_CELL = (8, 6421, 6, 64)  # one block's call in dino_vits8_f32.ncut_frames
 ATTN_MOCO = (8, 1591, 12, 32)  # moco_vit_small/16 at 480 x 856, 8 frames
 
 
-def attention_sets() -> dict:
-    """name -> (images, tokens, heads, hd, scale of q, k, v): one frame of the
-    DINO cell at two spreads of the scores, moco_vit_small's head dim, and
-    ragged N (under a key tile, around a warpgroup's and a block's rows) at
-    both head dims."""
-    sets = {"cell": (1, 6421, 6, 64, 1.0), "cell_sharp": (1, 6421, 6, 64, 2.0),
-            "moco": (1, 1591, 12, 32, 1.0)}
-    for n in (1, 63, 65, 129):
-        for hd in (32, 64):
-            sets[f"ragged_{n}_{hd}"] = (2, n, 3, hd, 2.0)
-    return sets
-
-
-def attention_qkv(torch, gen, b: int, n: int, heads: int, hd: int, scale: float = 1.0):
-    """A qkv linear's output as the ViT views it, [b, n, 3, heads, hd], N(0, scale^2)."""
-    x = torch.randn((b, n, 3 * heads * hd), generator=gen, device="cuda") * scale
-    return x.view(b, n, 3, heads, hd)
-
-
-def attention_gap(torch, ak, ours, qkv) -> float:
-    ref = ak.dino_attention_plain(qkv.double())
-    return float((ours.double() - ref).abs().max() / ref.abs().max())
-
-
-def phase_attention_kernel(torch, ak) -> dict:
-    """dino_attention against float64 on every set of ``attention_sets`` (limit
-    ``ATTN_TOL``), and the launches of one vit_small/8 call at 480 x 856 (its 11
-    blocks that run attention, one launch each)."""
-    from rcf_tpu_torch.nn import dino_vit
-    from rcf_tpu_torch.utils.precision import full_f32
-
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    gaps, plain = {}, {}
-    with torch.no_grad(), full_f32():
-        for name, (b, n, heads, hd, scale) in attention_sets().items():
-            qkv = attention_qkv(torch, gen, b, n, heads, hd, scale)
-            gaps[name] = attention_gap(torch, ak, ak.dino_attention(qkv), qkv)
-            plain[name] = attention_gap(torch, ak, ak.dino_attention_plain(qkv), qkv)
-            log(f"kernel dino_attention {name} {b}x{n}x{heads}x{hd}: gap to float64 "
-                f"{gaps[name]:.3e} (tol {ATTN_TOL}); plain f32 {plain[name]:.3e}")
-        vit = dino_vit.vit_small(patch_size=8, train_grid=28).cuda().eval()
-        ak.reset_launch_counts()
-        vit(torch.rand((1, 480, 856, 3), generator=gen, device="cuda"), return_last_k=True)
-        torch.cuda.synchronize()
-    launches = ak.LAUNCHES["dino_attention"]
-    failed = [name for name, gap in gaps.items() if not gap <= ATTN_TOL]
-    if failed or launches != 11:
-        raise RuntimeError(f"dino_attention: gap over {ATTN_TOL} on {failed}, or {launches} "
-                           f"launches for a ViT-S/8 call (11 blocks run attention)")
-    return {"gaps": gaps, "plain_gaps": plain, "launches_per_vit_call": launches}
-
-
-def attention_timing(torch, ak, checks: dict) -> dict:
+def attention_timing(torch, ak) -> dict:
     """The dino_attention row: one block's call of the DINO cell (``ATTN_CELL``)
     and, keys with ``_moco``, ``ATTN_MOCO``: ``ms``, ``plain_ms``, ``library_ms``
     an eager loop on one input set; ``ms_device``, ``library_ms_device`` device
@@ -1413,15 +984,13 @@ def attention_timing(torch, ak, checks: dict) -> dict:
 
     from rcf_tpu_torch.utils.precision import full_f32
 
-    gen = torch.Generator(device="cuda").manual_seed(12)
     row = {"name": "dino_attention", "route": "cuda", "source": "rcf_tpu_torch/csrc/attention.cu",
            "replaces": ATTN_REPLACES, "replaces_kind": "XLA code, not a TPU kernel",
-           "products": "wgmma.mma_async m64n32k8 / m64n{hd}k8 tf32, three a product (split TF32)",
-           "launches_per_vit_call": checks["launches_per_vit_call"], "gap": checks["gaps"]["cell"]}
+           "products": "wgmma.mma_async m64n32k8 / m64n{hd}k8 tf32, three a product (split TF32)"}
     for suffix, (b, n, heads, hd) in (("", ATTN_CELL), ("_moco", ATTN_MOCO)):
-        sets = [attention_qkv(torch, gen, b, n, heads, hd)]
-        sets += [attention_qkv(torch, gen, b, n, heads, hd)
-                 for _ in range(cold_sets(nbytes(sets[0])) - 1)]
+        sets = [ks.attention_qkv(b, n, heads, hd, seed=12, device="cuda")]
+        sets += [ks.attention_qkv(b, n, heads, hd, seed=13 + i, device="cuda")
+                 for i in range(cold_sets(nbytes(sets[0])) - 1)]
         libs = []
         for qkv in sets:
             q, k, v = (qkv[:, :, i].transpose(1, 2).contiguous() for i in range(3))
@@ -1500,7 +1069,7 @@ def crf_ref_inputs(torch):
 
     hw = RCF_REF_HW
     gen = torch.Generator().manual_seed(8)
-    imgs = crf_frames(torch, gen, 4, hw, "cpu", block=16)
+    imgs = ks.crf_frames(gen, 4, hw, block=16)
     field = F.interpolate(torch.randn(4, 1, 8, 8, generator=gen), size=(hw, hw),
                           mode="bilinear", align_corners=False)[:, 0]
     masks = torch.sigmoid(3.0 * field) + 0.1 * torch.randn(4, hw, hw, generator=gen)
@@ -1653,7 +1222,7 @@ def warp_calls(torch, wk, img, cx, cy, g) -> dict:
 
 def warp_set(torch, wk, gen, dtype, h, w, smooth: bool) -> dict:
     """warp_calls on one fresh input set (B=8, C=3, border coordinates)."""
-    img, cx, cy = level0_inputs(torch, dtype, gen, h=h, w=w, smooth=smooth)
+    img, cx, cy = ks.level0_inputs(dtype, gen, h=h, w=w, smooth=smooth)
     cx, cy = cx.clamp(0, w - 1), cy.clamp(0, h - 1)
     g = torch.randn(B, h, w, C, generator=gen, device="cuda").to(dtype)
     return warp_calls(torch, wk, img, cx, cy, g)
@@ -1726,7 +1295,7 @@ def level0_specs(torch, wk, gen, dtype=None) -> dict:
 
     def warp(name):
         def make(smooth=False):
-            img, cx, cy = level0_inputs(torch, torch.float32, gen, smooth=smooth)
+            img, cx, cy = ks.level0_inputs(torch.float32, gen, smooth=smooth)
             cx, cy = cx.clamp(0, W - 1), cy.clamp(0, H - 1)
             g = torch.randn(B, H, W, C, generator=gen, device="cuda")
             kern, lib, n_bytes, flops = warp_calls(torch, wk, img, cx, cy, g)[name]
@@ -1736,7 +1305,7 @@ def level0_specs(torch, wk, gen, dtype=None) -> dict:
         return make
 
     def splat(smooth=False):
-        _, tx, ty = level0_inputs(torch, torch.float32, gen, b=2 * B, smooth=smooth)
+        _, tx, ty = ks.level0_inputs(torch.float32, gen, b=2 * B, smooth=smooth)
         offs, valid, ax, ay = wk._taps(tx, ty, H, W)
         wts = ((1 - ay) * (1 - ax), (1 - ay) * ax, ay * (1 - ax), ay * ax)
         base = (torch.arange(2 * B, device="cuda") * H * W)[:, None, None]
@@ -1750,7 +1319,7 @@ def level0_specs(torch, wk, gen, dtype=None) -> dict:
 
     def dimg(smooth=False):
         fl = (torch.randn(B, H, W, 2, generator=gen, device="cuda") * 5.0).to(dtype)
-        _, zx, zy = level0_inputs(torch, torch.float32, gen, smooth=smooth)
+        _, zx, zy = ks.level0_inputs(torch.float32, gen, smooth=smooth)
         g2 = torch.randn(B, H, W, 2, generator=gen, device="cuda").to(dtype)
         fl_nchw = fl.permute(0, 3, 1, 2).contiguous()
         g2_nchw = g2.permute(0, 3, 1, 2).contiguous()
@@ -1766,7 +1335,7 @@ def level0_specs(torch, wk, gen, dtype=None) -> dict:
             "warp_bwd_dimg": dimg}
 
 
-def phase_timing(torch, wk, counts: dict, errs: dict) -> list:
+def phase_timing(torch, wk, counts: dict) -> list:
     """The ``kernels`` rows at the level-0 shape, i.i.d. flows. ``ms``,
     ``library_ms`` and ``plain_ms``: an eager loop of calls on one input set
     (``cuda_ms``), as earlier versions of this script read them. ``ms_device``, ``library_ms_device``:
@@ -1788,8 +1357,7 @@ def phase_timing(torch, wk, counts: dict, errs: dict) -> list:
         b_ms, b_by = bound(n_bytes, flops)
         rows.append({
             "name": name, "route": "cuda", "source": "rcf_tpu_torch/csrc/warp.cu",
-            "replaces": REPLACES[name], "launches": counts[name],
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "replaces": REPLACES[name], "launches": counts[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             "ms_device": ms_dev, "library_ms_device": lib_dev,
         })
@@ -2208,7 +1776,7 @@ CRF_ROWS = 4096  # query rows held against a plain computation over all keys
 # Limits of the stage-2 holds (card against the stated reference), set before
 # the first card run:
 # - crf_rows_480p: the kernel's rows against plain f32 rows at N = 409,920
-#   (CRF_TOL's structured-set limit; the same features' scales as training);
+#   (``kernel_sets.CRF_TOL``'s structured-set limit; the same features' scales as training);
 # - dino_rel: ViT-S/8 last-layer keys at 480x856, card against the port on the
 #   CPU, max |diff| over max |CPU| (TF32 off; twelve layers of f32 sums in
 #   another order);
@@ -3171,7 +2739,7 @@ def data_parallel_cards_main(torch, wk, ck, cards: int) -> int:
         return 2
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(wk.build), pool.submit(ck.build)]
+        builds = [pool.submit(wk.LIB.build), pool.submit(ck.LIB.build)]
         sos = [b.result() for b in builds]
     log(f"build: {time.perf_counter() - t0:.1f} s -> {sos}")
     root = os.path.abspath(TRAIN_DIR)
@@ -3210,7 +2778,6 @@ def main() -> int:
         from rcf_tpu_torch.ops import attention_kernels as ak
         from rcf_tpu_torch.ops import crf as crf_ops
         from rcf_tpu_torch.ops import crf_kernels as ck
-        from rcf_tpu_torch.ops import cuda_build
         from rcf_tpu_torch.ops import warp_kernels as wk
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
@@ -3226,36 +2793,15 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    # The release libraries and the test build that counts the overlap-add's
-    # branches, one nvcc each, side by side.
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        count_so = pool.submit(wk.build_patched, wk.COUNT_TAPS, "count_taps")
-        crf_so = pool.submit(ck.build)
-        attn_so = pool.submit(ak.build)
-        so = wk.build()
-        count_lib = wk.load_library(count_so.result())
-        crf_so, attn_so = crf_so.result(), attn_so.result()
-    phases["build"] = time.perf_counter() - t0
-    log(f"build: {phases['build']:.1f} s -> {so}, {crf_so}, {attn_so}")
-    for r in wk.ptxas_report(so):
-        log(f"  ptxas: {r['kernel']} {r['dtype']} C={r['c']}: {r.get('registers')} registers, "
-            f"spill {r.get('spill_stores')}/{r.get('spill_loads')} bytes (stores/loads), "
-            f"{r.get('smem')} bytes shared memory")
-    for r in cuda_build.ptxas_entries(crf_so) + cuda_build.ptxas_entries(attn_so):
-        log(f"  ptxas: {r['entry']}: {r.get('registers')} registers, spill "
-            f"{r.get('spill_stores')}/{r.get('spill_loads')} bytes, {r.get('smem')} bytes shared")
-
-    t0 = time.perf_counter()
-    errs = phase_kernels(torch, wk, count_lib)
+    phase_kernels()
     phases["kernels"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    errs["crf_filter"] = phase_crf_kernel(torch, ck, crf_ops)["davis"]
-    phases["crf_kernel"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    attn_checks = phase_attention_kernel(torch, ak)
-    phases["attention_kernel"] = time.perf_counter() - t0
+    for lib in (wk.LIB, ck.LIB, ak.LIB):
+        for r in lib.ptxas():
+            log(f"  ptxas: {r['entry']}: {r.get('registers')} registers, spill "
+                f"{r.get('spill_stores')}/{r.get('spill_loads')} bytes, {r.get('smem')} bytes shared")
+    phases["build"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     _, step_ms = phase_step(torch, wk, torch.float32)
@@ -3300,12 +2846,12 @@ def main() -> int:
     phases["rcf_crf_reference"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    rows = phase_timing(torch, wk, counts, errs)
+    rows = phase_timing(torch, wk, counts)
     crf_launches = {p: rcf[p]["launches"]["crf_filter"] for p in ("rcf_step_crf",
                                                                  "rcf_step_crf_bf16")}
     torch.cuda.empty_cache()
-    rows.append(attention_timing(torch, ak, attn_checks))
-    rows.append(crf_timing(torch, ck, crf_ops, crf_launches, errs["crf_filter"]))
+    rows.append(attention_timing(torch, ak))
+    rows.append(crf_timing(torch, ck, crf_launches))
     phases["timing"] = time.perf_counter() - t0
 
     torch.cuda.empty_cache()

@@ -19,9 +19,8 @@ takes.
 The wrapper takes the plain version only for a tensor on the CPU; on a CUDA
 tensor it launches the kernel or raises (another head dim, layout or type),
 and adds one to ``LAUNCHES["dino_attention"]`` a call. Every caller runs the
-ViT without gradients: an input that requires one raises. The library is
-built by ``cuda_build`` from ``csrc/attention.cu`` at the first launch (or
-``build()``).
+ViT without gradients: an input that requires one raises. ``LIB``, a
+``cuda_build.Library``, builds ``csrc/attention.cu`` at the first launch.
 """
 
 from __future__ import annotations
@@ -34,50 +33,24 @@ from . import cuda_build
 from .cuda_build import CSRC_DIR
 
 SOURCES = ("attention.cu",)
-_STEM = "librcf_attention"
 HEAD_DIMS = (32, 64)  # the compiled instances
 KEYS = 32  # keys a tile of the split pass (csrc/attention.cu's kKeys)
 GRID_Y_LIMIT = 65535  # images x heads a call at most
 N_LIMIT = 2**31 - 2 * KEYS  # tokens: 32-bit indices in the kernel
 
-LAUNCHES = {"dino_attention": 0}
-
-_lib: ctypes.CDLL | None = None
-
-
-def reset_launch_counts() -> None:
-    LAUNCHES["dino_attention"] = 0
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+LIB = cuda_build.Library("librcf_attention", SOURCES,
+                         {"rcf_dino_attention": [_P, _P, _P, _I64, _I32, _I32, _I32, _I64, _I64,
+                                                 _P]},
+                         ("dino_attention",))
+LAUNCHES = LIB.launches
+reset_launch_counts = LIB.reset
 
 
 def scratch_bytes(b: int, n: int, heads: int, hd: int) -> int:
     """The split pass's scratch: four TF32 parts (K hi, K lo, V^T hi, V^T lo) of
     every tile of ``KEYS`` keys of every (image, head), 4 bytes an element."""
     return b * heads * (-(-n // KEYS)) * 4 * KEYS * hd * 4
-
-
-def build(csrc_dir: str = CSRC_DIR) -> str:
-    """Compile attention.cu if this source hash has not been built; returns the .so path."""
-    return cuda_build.build(_STEM, SOURCES, csrc_dir)
-
-
-def build_patched(replacements, tag: str) -> str:
-    """Build a changed copy of attention.cu (``cuda_build.build_patched``) in ``build/<tag>/``."""
-    return cuda_build.build_patched(_STEM, SOURCES, replacements, tag)
-
-
-def load_library(path: str) -> ctypes.CDLL:
-    lib = ctypes.CDLL(path)
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.rcf_dino_attention.argtypes = [p, p, p, i64, i32, i32, i32, i64, i64, p]
-    lib.rcf_dino_attention.restype = ctypes.c_int
-    return lib
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        _lib = load_library(build())
-    return _lib
 
 
 def dino_attention_plain(qkv: torch.Tensor) -> torch.Tensor:
@@ -116,6 +89,6 @@ def dino_attention(qkv: torch.Tensor) -> torch.Tensor:
                          f"{N_LIMIT} tokens, got {b} x {heads} of {n}")
     out = torch.empty((b, n, heads * hd), dtype=torch.float32, device=qkv.device)
     parts = torch.empty(scratch_bytes(b, n, heads, hd), dtype=torch.uint8, device=qkv.device)
-    cuda_build.launch(LAUNCHES, "dino_attention", _load().rcf_dino_attention, qkv.device,
-                      qkv.data_ptr(), out.data_ptr(), parts.data_ptr(), b, n, heads, hd, sb, sn)
+    LIB.launch("dino_attention", "rcf_dino_attention", qkv.device, qkv.data_ptr(), out.data_ptr(),
+               parts.data_ptr(), b, n, heads, hd, sb, sn)
     return out

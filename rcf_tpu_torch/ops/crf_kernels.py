@@ -22,8 +22,8 @@ The wrapper takes the plain version only for a tensor on the CPU; on a
 CUDA tensor it launches the kernel or raises, and adds one to
 ``LAUNCHES["crf_filter"]`` and the logits the launch forms to
 ``STATS["pairs_evaluated"]`` (``schedule_pairs``; B N^2 to
-``STATS["pairs_dense"]``) where it launches. The library is built by
-``cuda_build`` from ``csrc/crf.cu`` at the first launch (or ``build()``).
+``STATS["pairs_dense"]``) where it launches. ``LIB``, a
+``cuda_build.Library``, builds ``csrc/crf.cu`` at the first launch.
 """
 
 from __future__ import annotations
@@ -36,25 +36,28 @@ from . import cuda_build
 from .cuda_build import CSRC_DIR
 
 SOURCES = ("crf.cu",)
-_STEM = "librcf_crf"
 FEATURE_DIMS = (2, 5)  # the compiled instances: xy features, and xy + rgb
 GRID_Z_LIMIT = 65535  # images a call at most
 N_LIMIT = 2**31 - 256  # tiles of 256, 32-bit pixel indices
 TILE = 256  # pixels a tile of the kernel's schedule (csrc/crf.cu's kTile)
 
-LAUNCHES = {"crf_filter": 0}
+_P = ctypes.c_void_p
+LIB = cuda_build.Library("librcf_crf", SOURCES,
+                         {"rcf_crf_filter": [_P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int,
+                                             ctypes.c_int, _P]},
+                         ("crf_filter",))
+LAUNCHES = LIB.launches
 # The logits the launches formed (T^2 a tile pair of the schedule, ragged
 # tiles at their padded size) and those of the dense filter (B N^2).
 STATS = {"pairs_evaluated": 0, "pairs_dense": 0}
 
-_lib: ctypes.CDLL | None = None
 # device index -> (sums f32, done i64): the kernel's per-image accumulators
 # and pair counters, zero between calls (the kernel leaves them so).
 _scratch: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES["crf_filter"] = 0
+    LIB.reset()
     STATS["pairs_evaluated"] = STATS["pairs_dense"] = 0
 
 
@@ -63,31 +66,6 @@ def schedule_pairs(b: int, n: int) -> int:
     tile pair (I, J), I <= J, of the nT = ceil(n / T) tiles an image."""
     nt = -(-n // TILE)
     return b * (nt * (nt + 1) // 2) * TILE * TILE
-
-
-def build(csrc_dir: str = CSRC_DIR) -> str:
-    """Compile crf.cu if this source hash has not been built; returns the .so path."""
-    return cuda_build.build(_STEM, SOURCES, csrc_dir)
-
-
-def build_patched(replacements, tag: str) -> str:
-    """Build a changed copy of crf.cu (``cuda_build.build_patched``) in ``build/<tag>/``."""
-    return cuda_build.build_patched(_STEM, SOURCES, replacements, tag)
-
-
-def load_library(path: str) -> ctypes.CDLL:
-    lib = ctypes.CDLL(path)
-    p = ctypes.c_void_p
-    lib.rcf_crf_filter.argtypes = [p, p, p, p, p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, p]
-    lib.rcf_crf_filter.restype = ctypes.c_int
-    return lib
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        _lib = load_library(build())
-    return _lib
 
 
 def _accumulators(device: torch.device, b: int, n: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -151,9 +129,8 @@ def crf_filter(feat: torch.Tensor, values: torch.Tensor, chunk: int = 1024) -> t
     feat, values = feat.contiguous(), values.contiguous()
     out = torch.empty_like(values)
     sums, done = _accumulators(feat.device, b, n)
-    cuda_build.launch(LAUNCHES, "crf_filter", _load().rcf_crf_filter, feat.device,
-                      feat.data_ptr(), values.data_ptr(), out.data_ptr(), sums.data_ptr(),
-                      done.data_ptr(), b, n, d)
+    LIB.launch("crf_filter", "rcf_crf_filter", feat.device, feat.data_ptr(), values.data_ptr(),
+               out.data_ptr(), sums.data_ptr(), done.data_ptr(), b, n, d)
     STATS["pairs_evaluated"] += schedule_pairs(b, n)
     STATS["pairs_dense"] += b * n * n
     return out

@@ -19,7 +19,7 @@ of ``rcf_tpu/ops/pallas/warp_pallas.py``:
 The two overlap-adds accumulate each block's taps in a window of shared
 memory and add it to device memory once; a tap outside the window goes
 straight to device memory (``warp.cu``). A test build counts the taps of
-each branch (``build_patched(COUNT_TAPS)``, ``tap_counts``).
+each branch (``LIB.patched(COUNT_TAPS, tag)``, ``tap_counts``).
 
 Beside each kernel is its plain PyTorch version (``*_plain``), the same
 function in tensor code. A wrapper takes the plain version only for a
@@ -30,16 +30,15 @@ Every kernel offsets inside one [H, W, C] plane in 32 bits and puts the
 batch in the launch grid's z: each wrapper raises, on every device, for a
 plane of more than 2^31 - 1 elements or a shape the grid cannot hold.
 
-Build: ``cuda_build`` compiles ``csrc/warp.cu`` for ``sm_90a`` into a
-shared library with a plain C interface, under ``rcf_tpu_torch/build/``,
-named by a hash of the sources and flags, at the first launch (or
-``build()``). No PyTorch headers, no ninja: a few seconds.
+Build: ``LIB``, a ``cuda_build.Library``, compiles ``csrc/warp.cu`` for
+``sm_90a`` into a shared library with a plain C interface, under
+``rcf_tpu_torch/build/``, named by a hash of the sources and flags, at the
+first launch. No PyTorch headers, no ninja: a few seconds.
 """
 
 from __future__ import annotations
 
 import ctypes
-import re
 
 import torch
 
@@ -47,79 +46,24 @@ from . import cuda_build
 from .cuda_build import CSRC_DIR
 
 SOURCES = ("warp.cu",)
-_STEM = "librcf_warp"
 
-LAUNCHES = {"warp_fwd": 0, "warp_bwd": 0, "warp_bwd_dimg": 0, "splat": 0}
-
-_lib: ctypes.CDLL | None = None
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def library_path(csrc_dir: str = CSRC_DIR) -> str:
-    return cuda_build.library_path(_STEM, SOURCES, csrc_dir)
-
-
-def build(csrc_dir: str = CSRC_DIR) -> str:
-    """Compile warp.cu if this source hash has not been built; returns the .so path
-    (``cuda_build.build``; ``csrc_dir`` may name another copy of the sources)."""
-    return cuda_build.build(_STEM, SOURCES, csrc_dir)
-
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+LIB = cuda_build.Library(
+    "librcf_warp", SOURCES,
+    {**dict.fromkeys(("rcf_warp_fwd_f32", "rcf_warp_fwd_bf16"),
+                     [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _P]),
+     **dict.fromkeys(("rcf_warp_bwd_f32", "rcf_warp_bwd_bf16"),
+                     [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P]),
+     **dict.fromkeys(("rcf_warp_bwd_dimg_f32", "rcf_warp_bwd_dimg_bf16"),
+                     [_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P]),
+     "rcf_splat": [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P],
+     "rcf_tap_counts": [_P, _I32]},
+    ("warp_fwd", "warp_bwd", "warp_bwd_dimg", "splat"))
+LAUNCHES = LIB.launches
+reset_launch_counts = LIB.reset
 
 # The test build's change to warp.cu: count the taps of each overlap-add branch.
 COUNT_TAPS = (("constexpr bool kCountTaps = false;", "constexpr bool kCountTaps = true;"),)
-
-
-def build_patched(replacements, tag: str) -> str:
-    """Build a changed copy of warp.cu (``cuda_build.build_patched``) in ``build/<tag>/``."""
-    return cuda_build.build_patched(_STEM, SOURCES, replacements, tag)
-
-
-def ptxas_report(so: str) -> list[dict]:
-    """Registers, spill bytes and static shared memory of each kernel instance,
-    from ``build()``'s log, by kernel, image dtype and compiled channel count."""
-    rows = []
-    for r in cuda_build.ptxas_entries(so):
-        name = r.pop("entry")
-        kernel = re.search(r"(warp_fwd|warp_bwd_dimg|warp_bwd|splat)_kernel", name)
-        c = re.search(r"Li(\d+)E", name)
-        rows.append({"kernel": kernel.group(1) if kernel else name,
-                     "dtype": "bf16" if "bfloat16" in name else "f32",
-                     "c": int(c.group(1)) if c else None, **r})
-    return rows
-
-
-def load_library(path: str) -> ctypes.CDLL:
-    """Load a built library and declare its C entry points."""
-    lib = ctypes.CDLL(path)
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    for name in ("rcf_warp_fwd_f32", "rcf_warp_fwd_bf16"):
-        fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, i64, i32, i32, i32, p]
-        fn.restype = i32
-    for name in ("rcf_warp_bwd_f32", "rcf_warp_bwd_bf16"):
-        fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, p, p, i64, i32, i32, i32, p]
-        fn.restype = i32
-    for name in ("rcf_warp_bwd_dimg_f32", "rcf_warp_bwd_dimg_bf16"):
-        fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, p, p, p, i64, i32, i32, i32, p]
-        fn.restype = i32
-    lib.rcf_splat.argtypes = [p, p, p, i64, i32, i32, i32, i32, p]
-    lib.rcf_splat.restype = i32
-    lib.rcf_tap_counts.argtypes = [p, i32]
-    lib.rcf_tap_counts.restype = i32
-    return lib
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        _lib = load_library(build())
-    return _lib
 
 
 def tap_counts(lib: ctypes.CDLL, reset: bool = True) -> tuple[int, int]:
@@ -131,11 +75,6 @@ def tap_counts(lib: ctypes.CDLL, reset: bool = True) -> tuple[int, int]:
     if err != 0:
         raise RuntimeError(f"rcf_tap_counts failed: cudaError {err}")
     return int(out[0]), int(out[1])
-
-
-def _launch(name: str, fn, dev: torch.device, *args) -> None:
-    cuda_build.launch(LAUNCHES, name, fn, dev, *args)
-
 
 
 def _check_warp(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor) -> None:
@@ -171,6 +110,11 @@ def _check_launch(name: str, b: int, h: int, plane: int, tile_rows: int = TILE_R
 def _check_grid(name: str, img: torch.Tensor) -> None:
     b, h, w, c = img.shape
     _check_launch(name, b, h, h * w * c)
+
+
+def _suffix(img: torch.Tensor) -> str:
+    """The entry points' suffix of the image's dtype."""
+    return "f32" if img.dtype == torch.float32 else "bf16"
 
 
 # ---------------------------------------------------------------- plain versions
@@ -263,10 +207,8 @@ def warp_fwd(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor) -> torch.Ten
     img, cx, cy = img.contiguous(), cx.contiguous(), cy.contiguous()
     out = torch.empty_like(img)
     b, h, w, c = img.shape
-    lib = _load()
-    fn = lib.rcf_warp_fwd_f32 if img.dtype == torch.float32 else lib.rcf_warp_fwd_bf16
-    _launch("warp_fwd", fn, img.device, img.data_ptr(), cx.data_ptr(), cy.data_ptr(),
-            out.data_ptr(), b * h * w, h, w, c)
+    LIB.launch("warp_fwd", f"rcf_warp_fwd_{_suffix(img)}", img.device, img.data_ptr(),
+               cx.data_ptr(), cy.data_ptr(), out.data_ptr(), b * h * w, h, w, c)
     return out
 
 
@@ -284,10 +226,9 @@ def warp_bwd(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
     dcx = torch.empty_like(cx)
     dcy = torch.empty_like(cy)
     b, h, w, c = img.shape
-    lib = _load()
-    fn = lib.rcf_warp_bwd_f32 if img.dtype == torch.float32 else lib.rcf_warp_bwd_bf16
-    _launch("warp_bwd", fn, img.device, img.data_ptr(), cx.data_ptr(), cy.data_ptr(),
-            g.data_ptr(), dcx.data_ptr(), dcy.data_ptr(), b * h * w, h, w, c)
+    LIB.launch("warp_bwd", f"rcf_warp_bwd_{_suffix(img)}", img.device, img.data_ptr(),
+               cx.data_ptr(), cy.data_ptr(), g.data_ptr(), dcx.data_ptr(), dcy.data_ptr(),
+               b * h * w, h, w, c)
     return dcx, dcy
 
 
@@ -307,10 +248,9 @@ def warp_bwd_dimg(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
     dcx = torch.empty_like(cx)
     dcy = torch.empty_like(cy)
     b, h, w, c = img.shape
-    lib = _load()
-    fn = lib.rcf_warp_bwd_dimg_f32 if img.dtype == torch.float32 else lib.rcf_warp_bwd_dimg_bf16
-    _launch("warp_bwd_dimg", fn, img.device, img.data_ptr(), cx.data_ptr(), cy.data_ptr(),
-            g.data_ptr(), dimg.data_ptr(), dcx.data_ptr(), dcy.data_ptr(), b * h * w, h, w, c)
+    LIB.launch("warp_bwd_dimg", f"rcf_warp_bwd_dimg_{_suffix(img)}", img.device,
+               img.data_ptr(), cx.data_ptr(), cy.data_ptr(), g.data_ptr(), dimg.data_ptr(),
+               dcx.data_ptr(), dcy.data_ptr(), b * h * w, h, w, c)
     return dimg.to(img.dtype), dcx, dcy
 
 
@@ -327,8 +267,8 @@ def splat(tx: torch.Tensor, ty: torch.Tensor, h: int, w: int) -> torch.Tensor:
     tx, ty = tx.contiguous(), ty.contiguous()
     # The kernel overlap-adds into the density: it must start at zero.
     out = torch.zeros(b, h, w, dtype=torch.float32, device=tx.device)
-    _launch("splat", _load().rcf_splat, tx.device, tx.data_ptr(), ty.data_ptr(), out.data_ptr(),
-            b * sh * sw, sh, sw, h, w)
+    LIB.launch("splat", "rcf_splat", tx.device, tx.data_ptr(), ty.data_ptr(), out.data_ptr(),
+               b * sh * sw, sh, sw, h, w)
     return out
 
 

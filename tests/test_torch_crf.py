@@ -10,7 +10,7 @@ ragged N, the batched mean field against ``crf_soft_single`` under
 dense numpy golden of ``tests/test_crf.py`` (copied here); a model of the
 kernel's split-TF32 operands against float64 logits, and a float64 model of
 its tile-pair schedule against the plain filter. The kernel itself runs
-only on the card (``cuda`` marker).
+only on the card: ``test_torch_crf_card.py``.
 """
 
 from __future__ import annotations
@@ -29,6 +29,8 @@ from rcf_tpu.ops import crf as jcrf
 from rcf_tpu_torch.ops import crf as tcrf
 from rcf_tpu_torch.ops import crf_kernels as ck
 
+import kernel_sets as ks
+
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
@@ -45,29 +47,6 @@ FILTER_ATOL = 1e-4
 # q1 after the mean field, the port against JAX: the filter's difference
 # above, through the iterations of a contraction. Measured <= 1.4e-5.
 Q1_ATOL = 1e-4
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-def synthetic_frames(b: int, h: int, w: int, seed: int = 0) -> np.ndarray:
-    """uint8 frames [b, h, w, 3]: a flat background, a disc and a bar of other
-    flat colours (edges), and +-3 levels of noise."""
-    rng = np.random.default_rng(seed)
-    ys, xs = np.mgrid[0:h, 0:w]
-    out = np.empty((b, h, w, 3), np.float32)
-    for k in range(b):
-        cols = rng.integers(20, 235, (3, 3))
-        img = np.broadcast_to(cols[0], (h, w, 3)).astype(np.float32).copy()
-        cy, cx, r = rng.uniform(0.3, 0.7) * h, rng.uniform(0.3, 0.7) * w, 0.3 * min(h, w)
-        img[(ys - cy) ** 2 + (xs - cx) ** 2 < r * r] = cols[1]
-        img[:, int(0.8 * w):] = cols[2]
-        out[k] = img + rng.integers(-3, 4, (h, w, 3))
-    return np.clip(out, 0, 255).astype(np.uint8)
 
 
 def soft_masks(frames: np.ndarray, seed: int = 0, noise: float = 0.25) -> np.ndarray:
@@ -125,7 +104,7 @@ def test_mask_to_unary_matches_jax(dtype):
 
 @pytest.mark.parametrize("xy_scale", [(1.0, 1.0), (0.25, 1.0 / 3.0)])
 def test_features_match_jax(xy_scale):
-    frames = synthetic_frames(2, 12, 9)
+    frames = ks.synthetic_frames(2, 12, 9)
     for k in range(2):
         ref = np.asarray(jcrf._pixel_features(jnp.asarray(frames[k]), 60.0, 5.0, xy_scale))
         ours = tcrf.pixel_features(torch.from_numpy(frames), 60.0, 5.0, xy_scale)[k].numpy()
@@ -135,23 +114,12 @@ def test_features_match_jax(xy_scale):
                                rtol=REL_F32, atol=0)
 
 
-def _filter_inputs(d: int, b: int = 2, h: int = 13, w: int = 11, seed: int = 2):
-    """Features at a recipe's scales (the DAVIS grid's sxy 60 / 4, srgb 5) of
-    synthetic frames, or their xy part (D = 2), and values in [0, 1]."""
-    frames = synthetic_frames(b, h, w, seed)
-    feat = tcrf.pixel_features(torch.from_numpy(frames), 60.0, 5.0, (0.25, 0.25))[..., 5 - d:]
-    if d == 2:
-        feat = tcrf.xy_features(h, w, 3.0).expand(b, -1, -1)
-    vals = np.random.default_rng(seed).uniform(0, 1, (b, h * w)).astype(np.float32)
-    return feat.contiguous().numpy(), vals
-
-
 @pytest.mark.parametrize("d", [5, 2])
 def test_crf_filter_plain_matches_jax(d):
     """``crf_filter_plain`` against ``_normalized_filter`` at a ragged N (13 x 11
     = 143 pixels, chunk 32: padded keys), and the wrapper on CPU tensors takes
     the plain version and counts no launch."""
-    feat, vals = _filter_inputs(d)
+    feat, vals = ks.filter_inputs(d)
     f, v = torch.from_numpy(feat), torch.from_numpy(vals)
     ck.reset_launch_counts()
     ours = ck.crf_filter(f, v, chunk=32)
@@ -211,7 +179,7 @@ def _jax_q1(rgb, mask, params, chunk, xy_scale=(1.0, 1.0)):
 def _mean_field_case(seed=3, b=3, h=12, w=10):
     """Frames and masks where image 0 (a clean two-colour split, its mask on
     one side) converges at once and the others (noisy masks) later."""
-    frames = synthetic_frames(b, h, w, seed)
+    frames = ks.synthetic_frames(b, h, w, seed)
     masks = soft_masks(frames, seed, noise=0.35)
     frames[0, :, : w // 2] = [200, 30, 30]
     frames[0, :, w // 2:] = [30, 30, 200]
@@ -283,7 +251,7 @@ def test_make_crf_fn_on_a_reduced_grid_matches_jax(dtype):
     """``make_crf_fn`` with ``resolution`` (24 x 20 frames on a 12 x 10 grid: the
     RGB and masks resized, sxy scaled, the MAP resized back), the masks in the
     recipe's dtype, ``stable_exit`` on: the same output."""
-    frames = synthetic_frames(2, 24, 20, seed=5)
+    frames = ks.synthetic_frames(2, 24, 20, seed=5)
     masks = soft_masks(frames, seed=5)
     imgs = normalize(frames)
     kw = {"resolution": (12, 10), "chunk": 32, "refine_iters": 10, "stable_exit": True}
@@ -351,53 +319,6 @@ def test_crf_snaps_noisy_mask_to_color_region():
     assert out[:, : w // 2].mean() > 0.95 and out[:, w // 2:].mean() < 0.05
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("d", [5, 2])
-def test_crf_filter_kernel_matches_plain_on_card(cuda, d):
-    """The kernel against its plain version at a ragged N and at the DAVIS grid."""
-    for b, h, w in ((3, 97, 61), (16, 96, 96)):
-        feat, vals = _filter_inputs(d, b, h, w)
-        f, v = torch.from_numpy(feat).to(cuda), torch.from_numpy(vals).to(cuda)
-        ck.reset_launch_counts()
-        ours = ck.crf_filter(f, v)
-        torch.cuda.synchronize()
-        assert ck.LAUNCHES["crf_filter"] == 1
-        assert (ours - ck.crf_filter_plain(f, v)).abs().max() <= 1e-4, (b, h, w)
-
-
-# N -> (images, h, w) of the card's ragged cases: below one tile (1, 7), one
-# tile less one, exactly one, one more (the ragged rule in both directions),
-# two tiles and 5, a ragged DAVIS-sized N, the DAVIS grid, and the
-# SegTrackv2 stage-2.1 cell's 32 images of 128^2.
-RAGGED_SHAPES = {1: (2, 1, 1), 7: (2, 1, 7), 255: (2, 15, 17), 256: (2, 16, 16),
-                 257: (2, 1, 257), 2 * 256 + 5: (2, 11, 47), 97 * 61: (2, 97, 61),
-                 96 * 96: (2, 96, 96), 128 * 128: (32, 128, 128)}
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("d", [5, 2])
-@pytest.mark.parametrize("n", sorted(RAGGED_SHAPES))
-def test_crf_filter_kernel_matches_plain_at_ragged_sizes(cuda, d, n):
-    """The kernel against its plain version at the sizes of ``RAGGED_SHAPES``, at
-    the DAVIS scales (the split-TF32 logits: limit 2e-4, ``chip_smoke.CRF_TOL``);
-    ``STATS`` reads the schedule's logits after one launch (50.8% of the dense
-    ones at the cell); a second call on the same inputs (the accumulator's
-    adds in another order) stays within the limit of the first."""
-    b, h, w = RAGGED_SHAPES[n]
-    feat, vals = _filter_inputs(d, b, h, w)
-    f, v = torch.from_numpy(feat).to(cuda), torch.from_numpy(vals).to(cuda)
-    ck.reset_launch_counts()
-    ours = ck.crf_filter(f, v)
-    torch.cuda.synchronize()
-    assert ck.LAUNCHES["crf_filter"] == 1
-    assert ck.STATS == {"pairs_evaluated": ck.schedule_pairs(b, n), "pairs_dense": b * n * n}
-    if n == 128 * 128:
-        assert round(ck.STATS["pairs_evaluated"] / ck.STATS["pairs_dense"], 3) == 0.508
-    assert (ours - ck.crf_filter_plain(f, v)).abs().max() <= 2e-4
-    again = ck.crf_filter(f, v)
-    assert (again - ours).abs().max() <= 2e-4
-
-
 # A model of the kernel's operands (csrc/crf.cu): centred on the midpoint of the
 # bounding box of a strip's queries (one tile), q' = log2(e) [f - c, -|f - c|^2/2, 1, 0...] and
 # k' = [f - c, 1, -|f - c|^2/2, 0...] formed in f32, each split into TF32
@@ -462,7 +383,7 @@ GRIDS = {"davis": (96, 0.25), "stv2": (128, 1 / 3)}
 
 def _grid_features(grid: str) -> np.ndarray:
     hw, scale = GRIDS[grid]
-    frames = synthetic_frames(1, hw, hw, seed=6)
+    frames = ks.synthetic_frames(1, hw, hw, seed=6)
     return tcrf.pixel_features(torch.from_numpy(frames), 60.0, 5.0, (scale, scale))[0].numpy()
 
 
@@ -584,7 +505,7 @@ def test_tile_pair_schedule_matches_plain(d, n):
     T^2 an image, with T the source's tile."""
     assert ck.TILE == _kernel_tile() == 256
     b, h, w = SCHEDULE_SHAPES[n]
-    feat, vals = _filter_inputs(d, b, h, w)
+    feat, vals = ks.filter_inputs(d, b, h, w)
     model, formed = _schedule_filter(feat.astype(np.float64), vals.astype(np.float64), ck.TILE)
     plain = ck.crf_filter_plain(torch.from_numpy(feat), torch.from_numpy(vals)).numpy()
     np.testing.assert_allclose(plain, model, rtol=0, atol=FILTER_ATOL)
@@ -611,7 +532,7 @@ SOURCE_EDITS = {**{f"variant {k}": v for k, v in _tool("time_crf_variants").VARI
 @pytest.mark.parametrize("name", sorted(SOURCE_EDITS))
 def test_kernel_source_edits_apply(name):
     """Each text a card tool replaces in crf.cu occurs there exactly once
-    (``cuda_build.build_patched`` raises otherwise), so the tools stay in step
+    (``Library.build_patched`` raises otherwise), so the tools stay in step
     with the source."""
     with open(os.path.join(ck.CSRC_DIR, "crf.cu")) as f:
         src = f.read()
@@ -622,7 +543,7 @@ def test_kernel_source_edits_apply(name):
 def _measure():
     """Print the readings behind FILTER_ATOL and Q1_ATOL."""
     for d in (5, 2):
-        feat, vals = _filter_inputs(d)
+        feat, vals = ks.filter_inputs(d)
         ours = ck.crf_filter_plain(torch.from_numpy(feat), torch.from_numpy(vals), 32).numpy()
         ref = np.stack([np.asarray(jcrf._normalized_filter(
             jnp.asarray(feat[k]), jnp.asarray(vals[k])[:, None], 32))[:, 0] for k in range(2)])

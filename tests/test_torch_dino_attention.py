@@ -8,9 +8,10 @@ grad; a numpy model of the kernel's split-TF32 products against float64.
 The kernel itself runs only on the card (``cuda`` marker): against a float64
 attention at one frame of the cell (6 heads of 64, 6,421 tokens) and at
 ``moco_vit_small``'s head dim 32 (12 heads, 1,591 tokens at 480 x 856), at
-ragged N, with the launch count, and its refusals. The file imports no JAX,
-so that the card runs it (``python -m pytest --noconftest
-tests/test_torch_dino_attention.py -m cuda``).
+ragged N (the sets of ``kernel_sets.ATTENTION_SETS``), with the launch
+count (one a call, 11 a vit_small/8 call at 480 x 856), and its refusals.
+The file imports no JAX, so that the card runs it (``python -m pytest
+--noconftest tests/test_torch_dino_attention.py -m cuda``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import torch
 
 from rcf_tpu_torch.nn import dino_vit
 from rcf_tpu_torch.ops import attention_kernels as ak
+
+import kernel_sets as ks
 
 # The kernel's output against float64, as the largest |o - o64| over the
 # largest |o64| of the call. Its products are f32 to ~2^-22 (split TF32, the
@@ -49,17 +52,9 @@ def _former_forward(self, x, return_k=False, span=None):
     return self.proj(_former_attention(qkv))
 
 
-def _qkv(b, n, heads, hd, scale=1.0, seed=0, device="cpu", pad_tokens=0):
-    """A [b, n, 3, heads, hd] view of a linear-like output [b, n + pad, 3 heads hd]:
-    i.i.d. N(0, scale^2), the image stride past the view's tokens when padded."""
-    g = torch.Generator().manual_seed(seed)
-    full = torch.randn((b, n + pad_tokens, 3 * heads * hd), generator=g) * scale
-    return full.to(device)[:, :n].reshape(b, n, 3, heads, hd)
-
-
 @pytest.mark.parametrize("b, n, heads, hd", [(2, 37, 2, 32), (1, 65, 6, 64), (3, 1, 1, 16)])
 def test_plain_is_the_former_attention_bit_for_bit(b, n, heads, hd):
-    qkv = _qkv(b, n, heads, hd, scale=2.0)
+    qkv = ks.attention_qkv(b, n, heads, hd, scale=2.0)
     out = ak.dino_attention(qkv)
     assert out.shape == (b, n, heads * hd)
     assert torch.equal(out, _former_attention(qkv))
@@ -80,7 +75,7 @@ def test_vit_forward_is_the_former_bit_for_bit(monkeypatch):
 
 
 def test_raises_when_an_input_requires_grad():
-    qkv = _qkv(1, 9, 2, 32).requires_grad_(True)
+    qkv = ks.attention_qkv(1, 9, 2, 32).requires_grad_(True)
     with pytest.raises(ValueError, match="requires grad"):
         ak.dino_attention(qkv)
     attn = dino_vit.Attention(64, 2)
@@ -141,45 +136,38 @@ def cuda():
     return torch.device("cuda")
 
 
-def _gap(ours: torch.Tensor, qkv: torch.Tensor) -> float:
-    ref = ak.dino_attention_plain(qkv.double())
-    return float((ours.double() - ref).abs().max() / ref.abs().max())
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("b, n, heads, hd", [(1, 6421, 6, 64), (1, 1591, 12, 32)])
-@pytest.mark.parametrize("scale", [1.0, 2.0])
-def test_kernel_matches_float64_at_the_tools_shapes(cuda, b, n, heads, hd, scale):
+@pytest.mark.parametrize("name", [k for k in ks.ATTENTION_SETS if not k.startswith("ragged")])
+def test_kernel_matches_float64_at_the_tools_shapes(cuda, name):
     """One frame of the cell (vit_small/8 at 480 x 856) and moco_vit_small/16's
-    head dim; ``scale`` 2 makes the scores' spread 4 (sharper weights)."""
-    qkv = _qkv(b, n, heads, hd, scale=scale, seed=n, device=cuda)
+    head dim, at spreads 1 and 2 of q, k and v (``kernel_sets.ATTENTION_SETS``)."""
+    qkv = ks.attention_inputs(name, cuda)
     ak.reset_launch_counts()
     with torch.no_grad():
         ours = ak.dino_attention(qkv)
     torch.cuda.synchronize()
     assert ak.LAUNCHES["dino_attention"] == 1
-    assert _gap(ours, qkv) <= KERNEL_TOL
+    assert ks.attention_gap(ours, qkv) <= KERNEL_TOL
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [32, 64])
-@pytest.mark.parametrize("n", [1, 63, 65, 129])
-def test_kernel_matches_float64_at_ragged_sizes(cuda, hd, n):
+@pytest.mark.parametrize("name", [k for k in ks.ATTENTION_SETS if k.startswith("ragged")])
+def test_kernel_matches_float64_at_ragged_sizes(cuda, name):
     """N under a key tile, around one query warpgroup (64) and one block (128):
     the masked key tail and the unstored query rows; the image stride past the
     view (3 padding tokens) and two images of 3 heads."""
-    qkv = _qkv(2, n, 3, hd, scale=2.0, seed=n + hd, device=cuda, pad_tokens=3)
+    qkv = ks.attention_inputs(name, cuda)
     assert not qkv.is_contiguous()
     with torch.no_grad():
         ours = ak.dino_attention(qkv)
     torch.cuda.synchronize()
-    assert _gap(ours, qkv) <= KERNEL_TOL
+    assert ks.attention_gap(ours, qkv) <= KERNEL_TOL
 
 
 @pytest.mark.cuda
 def test_launches_count_one_a_call_and_one_a_block(cuda):
     """One launch a call; a ViT of depth 4 makes 3 (its last block gives keys)."""
-    qkv = _qkv(2, 70, 2, 32, device=cuda)
+    qkv = ks.attention_qkv(2, 70, 2, 32, device=cuda)
     ak.reset_launch_counts()
     with torch.no_grad():
         for _ in range(3):
@@ -196,17 +184,33 @@ def test_launches_count_one_a_call_and_one_a_block(cuda):
 
 
 @pytest.mark.cuda
+def test_vit_small_call_launches_once_a_block_that_runs_attention(cuda):
+    """vit_small/8 at 480 x 856, keys of the last block: its 11 blocks that run
+    attention launch once each."""
+    from rcf_tpu_torch.utils.precision import full_f32
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    vit = dino_vit.vit_small(patch_size=8, train_grid=28).to(cuda).eval()
+    ak.reset_launch_counts()
+    with torch.no_grad(), full_f32():
+        vit(torch.rand((1, 480, 856, 3), generator=gen, device=cuda), return_last_k=True)
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES["dino_attention"] == 11
+
+
+@pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="head dims"):
-        ak.dino_attention(_qkv(1, 9, 2, 48, device=cuda))
+        ak.dino_attention(ks.attention_qkv(1, 9, 2, 48, device=cuda))
     with pytest.raises(ValueError, match="head dims"):
-        ak.dino_attention(_qkv(1, 9, 2, 16, device=cuda))
+        ak.dino_attention(ks.attention_qkv(1, 9, 2, 16, device=cuda))
     with pytest.raises(ValueError, match="float32"):
-        ak.dino_attention(_qkv(1, 9, 2, 32, device=cuda).double())
+        ak.dino_attention(ks.attention_qkv(1, 9, 2, 32, device=cuda).double())
     with pytest.raises(ValueError, match="strides"):
-        ak.dino_attention(_qkv(1, 9, 2, 32, device=cuda).transpose(3, 4).contiguous().transpose(3, 4))
+        qkv = ks.attention_qkv(1, 9, 2, 32, device=cuda)
+        ak.dino_attention(qkv.transpose(3, 4).contiguous().transpose(3, 4))
     with pytest.raises(ValueError, match="requires grad"):
-        ak.dino_attention(_qkv(1, 9, 2, 32, device=cuda).requires_grad_(True))
+        ak.dino_attention(ks.attention_qkv(1, 9, 2, 32, device=cuda).requires_grad_(True))
 
 
 def test_variant_edits_apply_to_the_source():

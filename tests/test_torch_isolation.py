@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, no rcf_tpu, no yaml/cv2/PIL; no silent CPU fallback.
 
 The machine with the card has torch and numpy but none of the JAX
-package's dependencies, so every module of ``rcf_tpu_torch`` and
-``chip_smoke`` must import with those blocked.
+package's dependencies, so every module of ``rcf_tpu_torch``, ``chip_smoke``
+and the card tests (with their input sets, ``kernel_sets``) must import
+with those blocked.
 """
 
 from __future__ import annotations
@@ -36,7 +37,9 @@ _IMPORT_ALL = textwrap.dedent("""
     sys.meta_path.insert(0, Blocker())
 
     import rcf_tpu_torch
-    names = ["chip_smoke"] + [m.name for m in pkgutil.walk_packages(
+    sys.path.insert(0, "tests")  # the card tests and their input sets
+    names = ["chip_smoke", "kernel_sets", "test_torch_crf_card", "test_torch_warp_card",
+             "test_torch_dino_attention"] + [m.name for m in pkgutil.walk_packages(
         rcf_tpu_torch.__path__, "rcf_tpu_torch.")]
     for name in names:
         importlib.import_module(name)

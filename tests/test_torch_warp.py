@@ -5,8 +5,8 @@ the JAX side runs the Pallas kernels in interpret mode and the plain
 gather / dense references. Inputs come from numpy with a seed and go to
 both frameworks. Coordinates are non-integer: at an exact integer the
 TPU kernel's hat derivative is 0 while a gather's is one-sided
-(``tests/test_warp_pallas.py``). The kernel-vs-plain cases need a card and
-skip without one.
+(``tests/test_warp_pallas.py``). The kernels against their plain versions
+on the card: ``test_torch_warp_card.py``.
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ from rcf_tpu.ops.pallas.warp_pallas import splat_pallas, warp_pallas
 from rcf_tpu_torch.ops import warp as twarp
 from rcf_tpu_torch.ops import warp_kernels as wk
 
+import kernel_sets as ks
+
 B, H, W, C = 2, 128, 384, 3
 
 # Same 4-tap arithmetic in f32 on both sides, values in [0, 1).
@@ -32,45 +34,10 @@ TOL_GRADS = 1e-4
 TOL_SPLAT = 1e-5
 
 
-def _img(shape, seed=0):
-    return np.random.default_rng(seed).random(shape).astype(np.float32)
-
-
-def _flow(shape, scale, seed=2):
-    return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
-
-
-def _coords(flow):
-    b, h, w, _ = flow.shape
-    ys, xs = np.meshgrid(np.arange(h, dtype=np.float32), np.arange(w, dtype=np.float32),
-                         indexing="ij")
-    return xs[None] + flow[..., 0], ys[None] + flow[..., 1]
-
-
-def _far_coords(shape, seed=7):
-    """Coordinates of i.i.d. N(0, 40^2) flows, one pixel in ten moved 10^6 px left or
-    right and another one in ten up or down: taps far outside a kernel block's
-    window and outside the image."""
-    rng = np.random.default_rng(seed)
-    out = []
-    for t in _coords(_flow((*shape, 2), 40.0, seed=seed)):
-        far = rng.random(t.shape) < 0.1
-        out.append(np.where(far, t + 1e6 * rng.choice([-1.0, 1.0], t.shape), t)
-                   .astype(np.float32))
-    return out
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    return torch.device("cuda")
-
-
 @pytest.mark.parametrize("pad", ["border", "zeros"])
 def test_warp_fwd_matches_pallas(pad):
-    img = _img((B, H, W, C))
-    cx, cy = _coords(_flow((B, H, W, 2), 5.0 if pad == "border" else 9.0))
+    img = ks.image((B, H, W, C))
+    cx, cy = ks.coords(ks.flow((B, H, W, 2), 5.0 if pad == "border" else 9.0))
     if pad == "border":
         cx, cy = np.clip(cx, 0, W - 1), np.clip(cy, 0, H - 1)
     ref = np.asarray(warp_pallas(jnp.asarray(img), jnp.asarray(cx), jnp.asarray(cy), True))
@@ -79,9 +46,9 @@ def test_warp_fwd_matches_pallas(pad):
 
 
 def test_warp_coordinate_grads_match_pallas():
-    img = _img((B, H, W, C))
-    flow = _flow((B, H, W, 2), 5.0)
-    wgt = _img((B, H, W, C), seed=5) - 0.5
+    img = ks.image((B, H, W, C))
+    flow = ks.flow((B, H, W, 2), 5.0)
+    wgt = ks.image((B, H, W, C), seed=5) - 0.5
     ys, xs = jnp.meshgrid(jnp.arange(H, dtype=jnp.float32), jnp.arange(W, dtype=jnp.float32),
                           indexing="ij")
 
@@ -108,9 +75,9 @@ def test_warp_coordinate_grads_match_pallas():
 def test_flow_warp_matches_jax_at_odd_sizes(pad, c):
     """C=3 runs the kernel route (plain here), C=12 the grid_sample route."""
     shape = (2, 7, 9, c)
-    img = _img(shape)
-    flow = _flow((2, 7, 9, 2), 3.0)
-    wgt = _img(shape, seed=4) - 0.5
+    img = ks.image(shape)
+    flow = ks.flow((2, 7, 9, 2), 3.0)
+    wgt = ks.image(shape, seed=4) - 0.5
     grad_img = c > 8
 
     def jloss(im, f):
@@ -133,8 +100,8 @@ def test_flow_warp_bf16_features_match_jax(pad):
     """A bf16 feature map (C > 8, PWC-Lite's warps) at 160 wide: JAX's gather
     blends the bf16 values with f32 weights at f32 coordinates and returns f32.
     The port must too (a bf16 grid would be off by up to 0.3 px here)."""
-    img = _img((2, 24, 160, 12))
-    flow = _flow((2, 24, 160, 2), 3.0)
+    img = ks.image((2, 24, 160, 12))
+    flow = ks.flow((2, 24, 160, 2), 3.0)
     ref = np.asarray(jwarp.flow_warp(jnp.asarray(img, jnp.bfloat16), jnp.asarray(flow), pad=pad))
     ours = twarp.flow_warp(torch.from_numpy(img).bfloat16(), torch.from_numpy(flow), pad=pad)
     assert ref.dtype == np.float32 and ours.dtype == torch.float32
@@ -154,9 +121,9 @@ TOL_DIMG = 1e-4
 def test_warp_image_grad_matches_pallas(pad, c):
     """Kernel 4's plain version, and autograd through flow_warp(grad_img=True),
     against jax.grad of sum(sin(warp_pallas(img, cx, cy, need_dimg=True)))."""
-    img = _img((B, H, W, c)) - 0.5
-    flow = _flow((B, H, W, 2), 5.0 if pad == "border" else 9.0)
-    cx, cy = _coords(flow)
+    img = ks.image((B, H, W, c)) - 0.5
+    flow = ks.flow((B, H, W, 2), 5.0 if pad == "border" else 9.0)
+    cx, cy = ks.coords(flow)
     if pad == "border":
         cx, cy = np.clip(cx, 0, W - 1), np.clip(cy, 0, H - 1)
 
@@ -188,9 +155,9 @@ def test_warp_image_grad_matches_pallas(pad, c):
 def test_flow_warp_image_grad_matches_gather(pad, shape):
     """flow_warp(grad_img=True), C <= 8, against jax.grad through JAX's
     flow_warp, which takes the plain gather (bilinear_sample) at these sizes."""
-    img = _img(shape)
-    flow = _flow((*shape[:3], 2), 3.0)
-    wgt = _img(shape, seed=4) - 0.5
+    img = ks.image(shape)
+    flow = ks.flow((*shape[:3], 2), 3.0)
+    wgt = ks.image(shape, seed=4) - 0.5
 
     def jloss(im, f):
         return jnp.sum(jwarp.flow_warp(im, f, pad=pad, grad_img=True) * wgt)
@@ -227,7 +194,7 @@ def test_occu_mask_bidirection_matches_jax():
 
 @pytest.mark.parametrize("scale", [3.0, 12.0])
 def test_splat_matches_pallas(scale):
-    tx, ty = _coords(_flow((B, H, W, 2), scale))
+    tx, ty = ks.coords(ks.flow((B, H, W, 2), scale))
     ref = np.asarray(splat_pallas(jnp.asarray(tx), jnp.asarray(ty), H, W, interpret=True))
     ours = wk.splat(torch.from_numpy(tx), torch.from_numpy(ty), H, W)
     np.testing.assert_allclose(ours.numpy(), ref, atol=TOL_SPLAT)
@@ -238,7 +205,7 @@ def test_splat_matches_pallas_far_flow():
     splat against the Pallas kernel. At 96 x 384 the kernel's [96, 384] window
     covers the frame, so it is exact for any flow (at larger frames its caller
     sends flows that leave the window to the dense path)."""
-    tx, ty = _far_coords((B, 96, 384))
+    tx, ty = ks.far_coords((B, 96, 384))
     ref = np.asarray(splat_pallas(jnp.asarray(tx), jnp.asarray(ty), 96, 384, interpret=True))
     ours = wk.splat(torch.from_numpy(tx), torch.from_numpy(ty), 96, 384)
     np.testing.assert_allclose(ours.numpy(), ref, atol=TOL_SPLAT)
@@ -246,14 +213,14 @@ def test_splat_matches_pallas_far_flow():
 
 @pytest.mark.parametrize("shape", [(2, 12, 14), (3, 33, 47)])
 def test_corresponding_map_matches_dense(shape):
-    flow = _flow((*shape, 2), 4.0, seed=1)
+    flow = ks.flow((*shape, 2), 4.0, seed=1)
     ref = np.asarray(jwarp._corresponding_map_dense(jnp.asarray(flow)))
     ours = twarp.corresponding_map(torch.from_numpy(flow))
     np.testing.assert_allclose(ours.numpy(), ref, atol=TOL_SPLAT)
 
 
 def test_occu_mask_backward_matches_jax():
-    flow = _flow((2, 40, 56, 2), 4.0, seed=3)
+    flow = ks.flow((2, 40, 56, 2), 4.0, seed=3)
     dens = np.asarray(jwarp._corresponding_map_dense(jnp.asarray(flow)))
     ref = np.asarray(jwarp.occu_mask_backward(jnp.asarray(flow), th=0.2))
     ours = twarp.occu_mask_backward(torch.from_numpy(flow), th=0.2).numpy()
@@ -272,8 +239,8 @@ def test_correlation_matches_jax():
 
 
 def test_cpu_wrappers_run_plain_versions_without_launching():
-    img = torch.from_numpy(_img((1, 8, 8, 3)))
-    cx, cy = (torch.from_numpy(a) for a in _coords(_flow((1, 8, 8, 2), 2.0)))
+    img = torch.from_numpy(ks.image((1, 8, 8, 3)))
+    cx, cy = (torch.from_numpy(a) for a in ks.coords(ks.flow((1, 8, 8, 2), 2.0)))
     wk.reset_launch_counts()
     torch.testing.assert_close(wk.warp_fwd(img, cx, cy), wk.warp_fwd_plain(img, cx, cy),
                                rtol=0, atol=0)
@@ -346,81 +313,3 @@ def test_overlap_add_wrappers_reject_planes_past_32_bits(kernel):
             call(b, h, 1)
     wk._check_launch(kernel, 65535, rows, 2**31 - 1,
                      wk.SPLAT_TILE_ROWS if kernel == "splat" else wk.TILE_ROWS)
-
-
-# The kernels-phase shapes of chip_smoke.py: widths that are no multiple of 32
-# (ragged tails, misaligned rows), every compiled channel count and the generic
-# instance (C=5), three planes; and the tests' level shape.
-_CARD_SHAPES = [(3, h, w, c) for h in (1, 13) for w in (1, 3, 77) for c in (1, 2, 3, 4, 5)]
-_CARD_SHAPES.append((B, H, W, C))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
-def test_warp_kernels_match_plain_on_card(cuda, dtype, tol):
-    for shape in _CARD_SHAPES:
-        img = torch.from_numpy(_img(shape)).to(cuda, dtype)
-        cx, cy = (torch.from_numpy(a).to(cuda) for a in _coords(_flow((*shape[:3], 2), 9.0)))
-        g = torch.from_numpy(_img(shape, seed=9) - 0.5).to(cuda, dtype)
-        h, w = shape[1:3]
-        for x, y in ((cx, cy), (cx.clamp(0, w - 1), cy.clamp(0, h - 1))):  # zeros, border
-            out = wk.warp_fwd(img, x, y)
-            torch.cuda.synchronize()
-            assert (out.float() - wk.warp_fwd_plain(img, x, y).float()).abs().max() <= tol, shape
-            for k, p in zip(wk.warp_bwd(img, x, y, g), wk.warp_bwd_plain(img, x, y, g)):
-                torch.cuda.synchronize()
-                assert (k - p).abs().max() <= 1e-4, shape
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c", [2, 3])
-def test_warp_bwd_dimg_kernel_matches_plain_on_card(cuda, dtype, c):
-    """The level shape with C = c (flows N(0, 9^2), pad "zeros"); the ragged
-    shapes (every C, flows N(0, 2^2), both pads: tiles past the edge, rows whose
-    window flush has a head and a tail); and far flows (``_far_coords``, pad
-    "zeros"): taps outside the block's window, which go straight to device memory."""
-    sets = [((B, H, W, c), _coords(_flow((B, H, W, 2), 9.0)), False)]
-    sets += [(s, _coords(_flow((*s[:3], 2), 2.0)), True) for s in _CARD_SHAPES[:-1]]
-    sets.append(((B, H, W, c), _far_coords((B, H, W)), False))
-    for shape, coords, both_pads in sets:
-        img = torch.from_numpy(_img(shape)).to(cuda, dtype)
-        cx, cy = (torch.from_numpy(a).to(cuda) for a in coords)
-        g = torch.from_numpy(_img(shape, seed=9) - 0.5).to(cuda, dtype)
-        h, w = shape[1:3]
-        pads = [(cx, cy)] + ([(cx.clamp(0, w - 1), cy.clamp(0, h - 1))] if both_pads else [])
-        for x, y in pads:
-            ours = wk.warp_bwd_dimg(img, x, y, g)
-            torch.cuda.synchronize()
-            plain = wk.warp_bwd_dimg_plain(img, x, y, g)
-            # dimg: f32 atomics in a run-dependent order, then, for bf16 images, one
-            # rounding to bf16 on each side (|dimg| < 4: one bf16 ulp is at most 2^-6).
-            tol = 1e-5 if dtype == torch.float32 else 2e-2
-            assert (ours[0].float() - plain[0].float()).abs().max() <= tol, shape
-            for k, p in zip(ours[1:], plain[1:]):
-                assert (k - p).abs().max() <= 1e-4, shape
-
-
-@pytest.mark.cuda
-def test_splat_kernel_matches_plain_on_card(cuda):
-    tx, ty = (torch.from_numpy(a).to(cuda) for a in _coords(_flow((B, H, W, 2), 6.0)))
-    dens = wk.splat(tx, ty, H, W)
-    torch.cuda.synchronize()
-    assert (dens - wk.splat_plain(tx, ty, H, W)).abs().max() <= 1e-4
-
-
-@pytest.mark.cuda
-def test_splat_kernel_matches_plain_on_card_ragged_and_far(cuda):
-    """The ragged source shapes into their own shape, a larger and a smaller
-    density; and far flows (``_far_coords``) at the level shape, whose taps
-    leave the block's window and the image."""
-    sets = []
-    for b, h, w, _ in _CARD_SHAPES[:-1:5]:  # each (h, w) once
-        coords = _coords(_flow((b, h, w, 2), 2.0))
-        sets += [(coords, out) for out in ((h, w), (h + 5, 2 * w + 1), (max(h // 2, 1), max(w // 3, 1)))]
-    sets.append((_far_coords((B, H, W)), (H, W)))
-    for coords, (h, w) in sets:
-        tx, ty = (torch.from_numpy(a).to(cuda) for a in coords)
-        dens = wk.splat(tx, ty, h, w)
-        torch.cuda.synchronize()
-        assert (dens - wk.splat_plain(tx, ty, h, w)).abs().max() <= 1e-4, (tx.shape, h, w)

@@ -25,23 +25,20 @@ the CPU side stays plain):
   grid, in bf16 (the grid cast that the port had before it kept f32).
 
 Prints each case's readings beside chip_smoke's limits and which of them
-catch it. Then faults in the CUDA source itself, each built from a changed
-copy of ``csrc/`` under the gitignored ``rcf_tpu_torch/build/`` (the
-repository's sources stay as they are):
+catch it. Then the kernels' card tests (``chip_smoke.CARD_TESTS``), run in
+this process (``pytest.main``), sound and with faults in the CUDA source
+itself, each built from a changed copy of ``csrc/`` under the gitignored
+``rcf_tpu_torch/build/`` (``Library.patched``; the repository's sources stay
+as they are); for each it prints the card cases that fail:
 
 * ``tail_dropped``: warp_fwd and warp_bwd leave out the pixels of a row past
   its last multiple of 4 (the last pixel of a 77-wide row), which the
-  level-0 shape (640 wide) never shows; it prints chip_smoke's level-0 and
-  ragged-shape kernel comparisons for it;
+  level-0 shape (640 wide) never shows;
 * ``direct_dropped``: the overlap-adds (splat, warp_bwd_dimg) drop every tap
   outside the block's shared-memory window instead of adding it to device
   memory;
 * ``flush_tail_dropped``: the overlap-adds' flush leaves out the scalar quad
-  at the tail of each window row;
-
-for these two it prints the worst error of each of chip_smoke's
-overlap-add comparisons (level 0, and ``check_overlap_add``'s sets) and
-which catch it.
+  at the tail of each window row.
 
 Then the stage-1 RCF step's card-vs-CPU check (``chip_smoke.rcf_reference_*``:
 the DAVIS step's losses, mask probabilities, two weight gradients and the
@@ -74,11 +71,9 @@ sound and with one fault at a time planted at run time on the card's side:
   batch's last exit instead of frozen at its own;
 * ``tf32_logits``: the filter's logits from a TF32 matrix product.
 
-Last, three faults built into ``crf.cu`` (``crf_kernels.build_patched``, in
-the gitignored ``rcf_tpu_torch/build/``), each read by chip_smoke's
-``crf_kernel`` comparisons (``crf_kernel_readings``: kernel against the
-plain version and against float64 on its five sets, ``CRF_TOL``) and by the
-stage-2.1 card-vs-CPU check:
+Last, three faults built into ``crf.cu`` (``crf_kernels.LIB.patched``), each
+run through the crf_filter card tests (``tests/test_torch_crf_card.py``)
+and the stage-2.1 card-vs-CPU check:
 
 * ``lo_products_dropped``: the dot without its hi.lo and lo.hi products, a
   single TF32 dot;
@@ -119,7 +114,8 @@ import os
 import subprocess
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 
 # The thread-placement test of warp_fwd/warp_bwd, and the fault planted in it.
@@ -133,53 +129,45 @@ OVERLAP_FAULTS = {
 }
 
 
-def tail_fault(torch, cs, wk) -> dict:
-    """chip_smoke's level-0 and ragged warp comparisons with the tail fault built in."""
-    faulty = wk.load_library(wk.build_patched([TAIL_FAULT], "fault_tail"))
-    sound, wk._lib = wk._load(), faulty
-    try:
-        gen = torch.Generator(device="cuda").manual_seed(1)
-        img, cx, cy = cs.level0_inputs(torch, torch.float32, gen)
-        g = torch.randn_like(img)
-        level0 = {"warp_fwd": cs.max_err(wk.warp_fwd(img, cx, cy), wk.warp_fwd_plain(img, cx, cy)),
-                  "warp_bwd": max(cs.max_err(a, b) for a, b in zip(
-                      wk.warp_bwd(img, cx, cy, g), wk.warp_bwd_plain(img, cx, cy, g)))}
-        try:
-            cs.check_warp_ragged(torch, wk, gen)
-            ragged = None
-        except RuntimeError as e:
-            ragged = str(e)
-    finally:
-        wk._lib = sound
-    return {"level0_max_abs_err": level0, "ragged_caught": ragged}
+class CardOutcomes:
+    """A pytest plugin that keeps the cases that passed and those that failed."""
+
+    def __init__(self):
+        self.passed, self.failed = [], []
+
+    def pytest_runtest_logreport(self, report):
+        if report.failed:
+            self.failed.append(report.nodeid.split("::", 1)[1])
+        elif report.passed and report.when == "call":
+            self.passed.append(report.nodeid)
 
 
-def overlap_fault(torch, cs, wk, name: str, count_lib) -> dict:
-    """chip_smoke's overlap-add comparisons with one of OVERLAP_FAULTS built in:
-    the level-0 splat and warp_bwd_dimg (``check_warp_bwd_dimg``), then every set
-    of ``check_overlap_add``. Returns {comparison: worst error} and the caught ones."""
-    faulty = wk.load_library(wk.build_patched([OVERLAP_FAULTS[name]], f"fault_{name}"))
-    sound, wk._lib = wk._load(), faulty
-    worst, caught = {}, set()
-    try:
-        gen = torch.Generator(device="cuda").manual_seed(1)
-        try:
-            cs.check_warp_bwd_dimg(torch, wk, gen)
-        except RuntimeError:
-            caught.add("warp_bwd_dimg level0")
-        _, tx, ty = cs.level0_inputs(torch, torch.float32, gen, b=2 * cs.B)
-        e = cs.max_err(wk.splat(tx, ty, cs.H, cs.W), wk.splat_plain(tx, ty, cs.H, cs.W))
-        worst["splat level0"] = e
-        if not e <= cs.TOL[("splat", "float32")]:
-            caught.add("splat level0")
-        for r in cs.check_overlap_add(torch, wk, gen, count_lib):
-            key = f"{r['kernel']} {r['set'].split(' ')[0]}"
-            worst[key] = max(worst.get(key, 0.0), r["err"])
-            if not r["err"] <= r["tol"]:
-                caught.add(key)
-    finally:
-        wk._lib = sound
-    return {"max_abs_err": worst, "caught_by": sorted(caught)}
+def card_cases(files) -> dict:
+    """The card tests of ``files``, in this process, on the libraries in use:
+    {"passed": count, "failed": [case, ...]}."""
+    import pytest
+
+    outcomes = CardOutcomes()
+    pytest.main(["--noconftest", "-m", "cuda", "-q", "-p", "no:cacheprovider",
+                 *(os.path.join(REPO, f) for f in files)], plugins=[outcomes])
+    return {"passed": len(outcomes.passed), "failed": outcomes.failed}
+
+
+def print_cases(name: str, cases: dict) -> None:
+    print(f"{name:19s} card cases: {cases['passed']} passed, {len(cases['failed'])} failed"
+          + (f": {', '.join(cases['failed'])}" if cases["failed"] else ""), flush=True)
+
+
+def warp_kernel_faults() -> dict:
+    """The warp card tests with the tail fault and each of OVERLAP_FAULTS built in."""
+    from rcf_tpu_torch.ops import warp_kernels as wk
+
+    out = {}
+    for name, rep in {"tail_dropped": TAIL_FAULT, **OVERLAP_FAULTS}.items():
+        with wk.LIB.patched([rep], f"fault_{name}"):
+            out[name] = card_cases(["tests/test_torch_warp_card.py"])
+        print_cases(name, out[name])
+    return out
 
 
 def rcf_faults(torch, cs) -> dict:
@@ -272,28 +260,22 @@ CRF_KERNEL_FAULTS = {
 
 
 def crf_kernel_faults(torch, cs, cpu: dict) -> dict:
-    """chip_smoke's crf_kernel comparisons and stage-2.1 check (``cpu``: its CPU
-    readings) with each of CRF_KERNEL_FAULTS built into crf.cu."""
-    from rcf_tpu_torch.ops import crf as crf_ops
+    """The crf_filter card tests and chip_smoke's stage-2.1 check (``cpu``: its
+    CPU readings) with each of CRF_KERNEL_FAULTS built into crf.cu."""
     from rcf_tpu_torch.ops import crf_kernels as ck
 
     out = {}
     for name, reps in CRF_KERNEL_FAULTS.items():
-        faulty = ck.load_library(ck.build_patched(reps, f"fault_{name}"))
-        sound, ck._lib = ck._load(), faulty
-        try:
-            kernel = cs.crf_kernel_readings(torch, ck, crf_ops)
+        with ck.LIB.patched(reps, f"fault_{name}"):
+            cases = card_cases(["tests/test_torch_crf_card.py"])
             errs = cs.rcf_crf_reference_errors(cpu, cs.rcf_crf_reference_readings(torch, "cuda"))
-        finally:
-            ck._lib = sound
-        caught = cs.crf_kernel_failures(kernel) + cs.rcf_crf_reference_failures(errs)
-        out[name] = {"crf_kernel": kernel, "rcf_crf": errs, "caught_by": caught}
-        print(f"{name:19s} crf_kernel (to plain, to float64): "
-              + ", ".join(f"{k} {a:.2e} {b:.2e}" for k, (a, b, _) in kernel.items())
-              + "; stage 2.1: " + "  ".join(
-                  f"{k} {v if isinstance(v, (int, list)) else format(v, '.3e')}"
-                  for k, v in errs.items() if k in cs.RCF_CRF_REF_LIMITS)
-              + f"  caught by {caught or 'nothing'}", flush=True)
+        caught = cs.rcf_crf_reference_failures(errs)
+        out[name] = {"card_cases": cases, "rcf_crf": errs, "caught_by": caught}
+        print_cases(name, cases)
+        print(f"{name:19s} stage 2.1: " + "  ".join(
+            f"{k} {v if isinstance(v, (int, list)) else format(v, '.3e')}"
+            for k, v in errs.items() if k in cs.RCF_CRF_REF_LIMITS)
+            + f"  caught by {caught or 'nothing'}", flush=True)
     return out
 
 
@@ -522,26 +504,18 @@ def main() -> int:
         out[case] = {**errs, **img_errs, "caught_by": caught}
         print(f"{case:17s} " + "  ".join(f"{k} {v:.3e}" for k, v in {**errs, **img_errs}.items())
               + f"  caught by {caught or 'nothing'}", flush=True)
-    tail = tail_fault(torch, cs, wk)
-    print(f"tail_dropped      level-0 max_abs_err {tail['level0_max_abs_err']} (tol "
-          f"{cs.TOL[('warp_fwd', 'float32')]}, {cs.TOL[('warp_bwd', 'float32')]}); ragged check: "
-          + (tail["ragged_caught"] or "not caught"), flush=True)
-    count_lib = wk.load_library(wk.build_patched(wk.COUNT_TAPS, "count_taps"))
-    overlap = {}
-    for name in OVERLAP_FAULTS:
-        overlap[name] = r = overlap_fault(torch, cs, wk, name, count_lib)
-        print(f"{name:17s} " + "  ".join(f"{k} {v:.3e}" for k, v in r["max_abs_err"].items())
-              + f"  caught by {r['caught_by'] or 'nothing'}", flush=True)
+    card = {"sound": card_cases(cs.CARD_TESTS)}
+    print_cases("sound", card["sound"])
+    card.update(warp_kernel_faults())
     print(f"stage-1 limits {cs.RCF_REF_LIMITS}", flush=True)
     rcf = rcf_faults(torch, cs)
     print(f"stage-2.1 limits {cs.RCF_CRF_REF_LIMITS}", flush=True)
     crf_cpu = cs.rcf_crf_reference_readings(torch, "cpu")
     crf = rcf_crf_faults(torch, cs, crf_cpu)
-    print(f"crf_kernel limits {cs.CRF_TOL}", flush=True)
     crf_kernel = crf_kernel_faults(torch, cs, crf_cpu)
     print(f"data_parallel limits {cs.DP_LIMITS}", flush=True)
     dp = data_parallel_faults(torch, cs)
-    print(json.dumps({"device": smi, "cases": out, "tail_dropped": tail, **overlap,
+    print(json.dumps({"device": smi, "cases": out, "card": card,
                       "rcf": rcf, "rcf_crf": crf, "crf_kernel": crf_kernel,
                       "data_parallel": dp}))
     return 0

@@ -4,14 +4,15 @@
     python3 tools/time_attention_variants.py [--variants a,b,...] [--rounds 2]
 
 Builds every variant of ``VARIANTS`` (text replacements in a copy of
-``attention.cu``, ``attention_kernels.build_patched``; ``release`` is the
-source as it is), one nvcc each, side by side, and prints for each library
-the registers and spills of each instance and the compiler's warnings (a
-``C75xx`` one says that ptxas serialised the asynchronous products). Then,
-for each variant, the gap to a float64 attention (``chip_smoke``'s
-``attention_gap``) at one frame of the DINO cell (1 x 6,421 tokens, 6 heads of
-64; q, k, v of spread 1 and 2), at head dim 32 (1 x 1,591 x 12 heads) and at
-ragged N, and its device time at one block's call of the cell (8 x 6 x
+``attention.cu``, ``attention_kernels.LIB.build_patched``; ``release`` is
+the source as it is), one nvcc each, side by side, and prints for each
+library the registers and spills of each instance and the compiler's
+warnings (a ``C75xx`` one says that ptxas serialised the asynchronous
+products). Then, for each variant, the gap to a float64 attention
+(``kernel_sets.attention_gap``) on the card tests' sets
+(``kernel_sets.ATTENTION_SETS``: one frame of the DINO cell, 1 x 6,421
+tokens, 6 heads of 64; head dim 32, 1 x 1,591 x 12 heads; q, k, v of spread
+1 and 2; ragged N), and its device time at one block's call of the cell (8 x 6 x
 6,421^2, ``chip_smoke.graph_ms`` on ``cold_sets``), in turns (the variants,
 then the same in reverse), ``--rounds`` times, beside the TF32 floor. Last,
 one JSON line with the card's name and power limit. ``wait_pv`` waits for
@@ -32,7 +33,8 @@ import os
 import subprocess
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
 
 # Each old text occurs exactly once in attention.cu.
 _SPLIT3 = ("  wgmma<N>(d, al, bh, add);\n  wgmma<N>(d, ah, bl, 1);\n  wgmma<N>(d, ah, bh, 1);\n",
@@ -73,15 +75,13 @@ _PINGPONG = [
 ]
 VARIANTS = {"release": [], "wait_pv": _WAIT_PV, "pingpong": _PINGPONG, "diag_one_tf32": [_SPLIT3],
             "diag_carry": _CARRY}
-GAP_SETS = {"cell": (1, 6421, 6, 64, 1.0), "cell_sharp": (1, 6421, 6, 64, 2.0),
-            "moco": (1, 1591, 12, 32, 1.0), "ragged_65_64": (2, 65, 3, 64, 2.0),
-            "ragged_129_32": (2, 129, 3, 32, 2.0), "ragged_1_64": (2, 1, 3, 64, 2.0)}
 
 
 def main() -> int:
     import torch
 
     import chip_smoke as cs
+    import kernel_sets as ks
     from rcf_tpu_torch.ops import attention_kernels as ak
     from rcf_tpu_torch.ops import cuda_build
     from rcf_tpu_torch.utils.precision import full_f32
@@ -92,9 +92,7 @@ def main() -> int:
     args = ap.parse_args()
     names = args.variants.split(",")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        sos = {v: pool.submit(ak.build if v == "release" else ak.build_patched,
-                              *(() if v == "release" else (VARIANTS[v], f"attention_{v}")))
-               for v in names}
+        sos = {v: pool.submit(ak.LIB.build_patched, VARIANTS[v], f"attention_{v}") for v in names}
         sos = {v: f.result() for v, f in sos.items()}
     libs = {}
     for v, so in sos.items():
@@ -103,28 +101,27 @@ def main() -> int:
         for r in cuda_build.ptxas_entries(so):
             print(json.dumps({"variant": v, **r}), flush=True)
         print(json.dumps({"variant": v, "warnings": warnings[:4]}), flush=True)
-        libs[v] = ak.load_library(so)
+        libs[v] = ak.LIB.load(so)
 
-    gen = torch.Generator(device="cuda").manual_seed(21)
     b, n, heads, hd = cs.ATTN_CELL
     floor_ms = 4.0 * n * n * hd * b * heads / cs.TF32_FLOPS * 1e3
     with torch.no_grad(), full_f32():
-        gap_inputs = {k: (cs.attention_qkv(torch, gen, *s[:4], s[4]), s) for k, s in GAP_SETS.items()}
+        gap_inputs = {k: ks.attention_inputs(k) for k in ks.ATTENTION_SETS}
         gaps = {}
         for v in names:
-            ak._lib = libs[v]
-            gaps[v] = {k: cs.attention_gap(torch, ak, ak.dino_attention(x), x)
-                       for k, (x, _) in gap_inputs.items()}
+            with ak.LIB.using(libs[v]):
+                gaps[v] = {k: ks.attention_gap(ak.dino_attention(x), x)
+                           for k, x in gap_inputs.items()}
         del gap_inputs
-        sets = [cs.attention_qkv(torch, gen, b, n, heads, hd) for _ in range(2)]
-        sets += [cs.attention_qkv(torch, gen, b, n, heads, hd)
-                 for _ in range(cs.cold_sets(cs.nbytes(sets[0])) - 2)]
+        sets = [ks.attention_qkv(b, n, heads, hd, seed=21 + i, device="cuda") for i in range(2)]
+        sets += [ks.attention_qkv(b, n, heads, hd, seed=23 + i, device="cuda")
+                 for i in range(cs.cold_sets(cs.nbytes(sets[0])) - 2)]
         times = {v: [] for v in names}
         for _ in range(args.rounds):
             for v in names + names[::-1]:
-                ak._lib = libs[v]
-                times[v].append(cs.graph_ms(torch, [lambda x=x: ak.dino_attention(x) for x in sets],
-                                            iters=10, reps=3))
+                with ak.LIB.using(libs[v]):
+                    times[v].append(cs.graph_ms(
+                        torch, [lambda x=x: ak.dino_attention(x) for x in sets], iters=10, reps=3))
     for v in names:
         ms = sorted(times[v])[len(times[v]) // 2]
         print(json.dumps({"variant": v, "gaps": gaps[v], "device_ms": times[v],

@@ -4,16 +4,16 @@
     python3 tools/time_crf_variants.py [--baseline NAME=DIR ...] [--variants a,b,...] [--rounds 2]
 
 Builds every variant of ``VARIANTS`` (text replacements in a copy of
-``crf.cu``, ``crf_kernels.build_patched``; ``release`` is the source as it
-is) and, for each ``--baseline``, the ``crf.cu`` of another source directory
+``crf.cu``, ``crf_kernels.LIB.build_patched``; ``release`` is the source as
+it is) and, for each ``--baseline``, the ``crf.cu`` of another source directory
 (an earlier design, e.g. ``git show <rev>:rcf_tpu_torch/csrc/crf.cu`` written
 into a directory under the gitignored ``rcf_tpu_torch/build/``; one without
 the accumulators, the dense design before the tile-pair schedule, is called
-through its own signature), one nvcc each, side by side. For each library
+through its own signature, ``DenseABI``), one nvcc each, side by side. For each library
 it prints the registers, spills and shared memory of each instance
 (``cuda_build.ptxas_entries``) and the worst error against
-``crf_filter_plain`` and against a float64 filter on ``chip_smoke``'s five
-kernel sets (``crf_filter_sets``, TF32 on, limits ``CRF_TOL``). Then it
+``crf_filter_plain`` and against a float64 filter on the card tests' five
+sets (``kernel_sets.crf_filter_sets``, TF32 on, limits ``CRF_TOL``). Then it
 times each at ``GRIDS``: the DAVIS grid (16 x 96^2, D = 5), the SegTrackv2
 grid (16 x 128^2), the stage-2.1 cell's batch (32 x 128^2) and a 480p frame
 (1 x 480 x 854): device time on inputs the L2 does not hold
@@ -35,7 +35,8 @@ import os
 import subprocess
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
 
 # Replacements in crf.cu (each old text occurs exactly once), composed into
 # VARIANTS. The diagnostics compute another function (they fail the accuracy
@@ -126,7 +127,7 @@ def load_any(ck, so: str, src_dir: str | None = None):
         with open(os.path.join(src_dir, "crf.cu")) as f:
             if "float* sums" not in f.read():
                 return DenseABI(so)
-    return ck.load_library(so)
+    return ck.LIB.load(so)
 
 
 def main() -> int:
@@ -142,7 +143,7 @@ def main() -> int:
     import torch
 
     import chip_smoke as cs
-    from rcf_tpu_torch.ops import crf as crf_ops
+    import kernel_sets as ks
     from rcf_tpu_torch.ops import crf_kernels as ck
     from rcf_tpu_torch.ops import cuda_build
 
@@ -151,9 +152,10 @@ def main() -> int:
         return 2
     names = args.variants.split(",")
     with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
-        jobs = {n: pool.submit(ck.build_patched, VARIANTS[n], f"crf_{n}") for n in names}
+        jobs = {n: pool.submit(ck.LIB.build_patched, VARIANTS[n], f"crf_{n}") for n in names}
         bases = dict(b.split("=", 1) for b in args.baseline)
-        jobs = {**{n: pool.submit(ck.build, os.path.abspath(d)) for n, d in bases.items()}, **jobs}
+        jobs = {**{n: pool.submit(ck.LIB.build, os.path.abspath(d)) for n, d in bases.items()},
+                **jobs}
         sos = {}
         for n, j in jobs.items():
             try:
@@ -187,17 +189,16 @@ def main() -> int:
                 print(f"{n:14s} sass {inst.split()[0][-40:]}: {counts}", flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
-    sets = cs.crf_filter_sets(torch, crf_ops, torch.Generator(device="cuda").manual_seed(4))
-    refs = {k: (ck.crf_filter_plain(f, v), cs.crf_filter_f64(torch, f, v))
-            for k, (f, v) in sets.items()}
+    sets = ks.crf_filter_sets(torch.Generator(device="cuda").manual_seed(4))
+    refs = {k: (ck.crf_filter_plain(f, v), ks.crf_filter_f64(f, v)) for k, (f, v) in sets.items()}
     for n, lib in libs.items():
-        ck._lib = lib
         errs = {}
-        for k, (f, v) in sets.items():
-            out = ck.crf_filter(f, v)
-            errs[k] = (cs.max_err(out, refs[k][0]), cs.max_err(out, refs[k][1]))
+        with ck.LIB.using(lib):
+            for k, (f, v) in sets.items():
+                out = ck.crf_filter(f, v)
+                errs[k] = (cs.max_err(out, refs[k][0]), cs.max_err(out, refs[k][1]))
         report[n]["max_abs_err"] = errs
-        bad = [k for k, e in errs.items() if not max(e) <= cs.CRF_TOL[k]]
+        bad = [k for k, e in errs.items() if not max(e) <= ks.CRF_TOL[k]]
         report[n]["within_tol"] = not bad
         print(f"{n:20s} max_abs_err (plain, float64): "
               + ", ".join(f"{k} {a:.2e} {b:.2e}" for k, (a, b) in errs.items())
@@ -211,7 +212,7 @@ def main() -> int:
         if grid not in args.grids.split(","):
             continue
         def make():
-            f = cs.crf_features(torch, crf_ops, gen, b, h, w, scale)
+            f = ks.crf_features(gen, b, h, w, scale)
             return f, torch.rand(f.shape[:2], generator=gen, device="cuda")
         first = make()
         inputs = [first] + [make() for _ in range(cs.cold_sets(cs.nbytes(*first, first[1])) - 1)]
@@ -224,8 +225,8 @@ def main() -> int:
                                     "--format=csv,noheader,nounits", "-lms", "100"],
                                    stdout=subprocess.PIPE, text=True)
         for n in turns:
-            ck._lib = libs[n]
-            ms = cs.graph_ms(torch, fns, iters=iters, reps=5 if iters > 5 else 2)
+            with ck.LIB.using(libs[n]):
+                ms = cs.graph_ms(torch, fns, iters=iters, reps=5 if iters > 5 else 2)
             report[n].setdefault(f"ms_{grid}", []).append(ms)
             print(f"{grid:5s} {n:20s} {ms:.4f} ms device ({dense_ms / ms:.0%} of the dense ex2 "
                   f"floor {dense_ms:.4f} ms, {schedule_ms / ms:.0%} of the schedule's "
@@ -239,7 +240,6 @@ def main() -> int:
                   f"(median {clocks[len(clocks) // 2]:.0f}, {len(clocks)} samples), power up to "
                   f"{max(p for _, p in samples):.0f} W", flush=True)
         del inputs, fns
-    ck._lib = None
     print(json.dumps({"device": smi, "variants": report}))
     return 0
 
