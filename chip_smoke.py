@@ -11,10 +11,12 @@ Phases, each timed:
                 (each kernel against its plain version or float64 on the
                 card; ``tests/test_torch_warp_card.py``,
                 ``tests/test_torch_crf_card.py``,
-                ``tests/test_torch_dino_attention.py``); a failed case stops
+                ``tests/test_torch_dino_attention.py``,
+                ``tests/test_torch_dino_linear.py``); a failed case stops
                 the script;
 2. build      - the kernel libraries (``LIB`` of ``warp_kernels``,
-                ``crf_kernels``, ``attention_kernels``; the card tests built
+                ``crf_kernels``, ``attention_kernels``, ``linear_kernels``;
+                the card tests built
                 them into ``rcf_tpu_torch/build/``) and the compiler's report
                 of each instance: registers, spills, shared memory;
 3. step       - three AMD training steps (ResNet-50 OS8 + FCN mask head +
@@ -91,7 +93,10 @@ Phases, each timed:
                 ``scaled_dot_product_attention`` computing the same filter;
                 dino_attention at one block's call of the DINO cell (8 x 6 x
                 6,421 tokens of 64) and at head dim 32 (8 x 12 x 1,591) beside
-                its TF32 bound, its plain version and f32 SDPA.
+                its TF32 bound, its plain version and f32 SDPA; dino_linear
+                at the cell's four linears (M = 8 x 6,421) beside its TF32
+                and split-TF32 bounds, its plain version (F.linear, F.gelu,
+                +) and cuBLAS's f32 GEMM alone.
 
 13. train_cli - the trainer through its entry point, ``rcf_tpu_torch.cli.main``,
                 in process: a synthetic set in the DAVIS layout written by the
@@ -199,7 +204,7 @@ B, H, W, C = ks.B, ks.H, ks.W, ks.C  # AMD level 0: 8 pairs, flow_size 384x640, 
 STEPS = 3
 # The kernels' card tests, which run first, in a subprocess.
 CARD_TESTS = ("tests/test_torch_warp_card.py", "tests/test_torch_crf_card.py",
-              "tests/test_torch_dino_attention.py")
+              "tests/test_torch_dino_attention.py", "tests/test_torch_dino_linear.py")
 
 # Card vs CPU (TF32 off), each reading beside its limit:
 # - the AMD forward's loss relative to its scale and the mask probabilities
@@ -928,6 +933,54 @@ def traced_kernels(torch, fn) -> list:
     evts.sort(key=lambda e: -getattr(e, "self_device_time_total",
                                      getattr(e, "self_cuda_time_total", 0)))
     return [e.key for e in evts]
+
+
+LINEAR_REPLACES = "rcf_tpu/nn/dino_vit.py (Attention and Mlp: dense layers, GELU, residual adds)"
+
+
+def linear_timing(torch, lk) -> dict:
+    """The dino_linear row: the DINO cell's four linears (``kernel_sets.LINEAR_SETS``
+    qkv, proj, fc1, fc2 at M = 8 x 6,421), each key suffixed by the set's name:
+    ``ms``, ``plain_ms`` (F.linear, F.gelu, +), ``library_ms`` (F.linear alone,
+    cuBLAS's f32 GEMM, the yardstick the port no longer calls) an eager loop on
+    one input set; ``ms_device``, ``library_ms_device`` device time on
+    ``cold_sets`` input sets. The bound: the products' FLOPs at the dense TF32
+    rate; ``split_bound_ms`` three times it."""
+    import torch.nn.functional as F
+
+    from rcf_tpu_torch.utils.precision import full_f32
+
+    row = {"name": "dino_linear", "route": "cuda", "source": "rcf_tpu_torch/csrc/linear.cu",
+           "replaces": LINEAR_REPLACES, "replaces_kind": "XLA code, not a TPU kernel",
+           "products": "wgmma.mma_async m64n128k8 tf32, three a product (split TF32)"}
+    for name in ("qkv", "proj", "fc1", "fc2"):
+        m, k, n, _, _ = ks.LINEAR_SETS[name]
+        sets = [ks.linear_inputs(name, "cuda")]
+        sets += [{key: (val.roll(i + 1, 0) if torch.is_tensor(val) and val.dim() == 2
+                        and val.shape[0] == m else val) for key, val in sets[0].items()}
+                 for i in range(cold_sets(nbytes(sets[0]["x"])) - 1)]
+        a = sets[0]
+        with torch.no_grad(), full_f32():
+            res = {"ms": cuda_ms(torch, lambda: lk.dino_linear(**a)),
+                   "plain_ms": cuda_ms(torch, lambda: lk.dino_linear_plain(**a)),
+                   "library_ms": cuda_ms(torch, lambda: F.linear(a["x"], a["weight"], a["bias"]))}
+            res["ms_device"] = graph_ms(torch, [lambda b=b: lk.dino_linear(**b) for b in sets])
+            res["library_ms_device"] = graph_ms(
+                torch, [lambda b=b: F.linear(b["x"], b["weight"], b["bias"]) for b in sets])
+            res["library_kernels"] = traced_kernels(
+                torch, lambda: F.linear(a["x"], a["weight"], a["bias"]))[:3]
+            res["kernels"] = traced_kernels(torch, lambda: lk.dino_linear(**a))
+        del sets, a
+        res["bound_ms"] = 2.0 * m * k * n / TF32_FLOPS * 1e3
+        res["split_bound_ms"] = 3 * res["bound_ms"]
+        log(f"timing dino_linear {name} {m}x{k}->{n}: {res['ms']:.4f} ms, device "
+            f"{res['ms_device']:.4f} ms (TF32 bound {res['bound_ms']:.4f} ms, "
+            f"{res['bound_ms'] / res['ms_device']:.1%} of it; split {res['split_bound_ms']:.4f} ms, "
+            f"{res['split_bound_ms'] / res['ms_device']:.1%}); plain {res['plain_ms']:.4f} ms; "
+            f"library {res['library_ms']:.4f} ms, device {res['library_ms_device']:.4f} ms, "
+            f"kernels {res['library_kernels']}; ours {res['kernels']}")
+        row.update({f"{key}_{name}": v for key, v in res.items()})
+    return row
 
 
 def crf_timing(torch, ck, launches: dict) -> dict:
@@ -2778,6 +2831,7 @@ def main() -> int:
         from rcf_tpu_torch.ops import attention_kernels as ak
         from rcf_tpu_torch.ops import crf as crf_ops
         from rcf_tpu_torch.ops import crf_kernels as ck
+        from rcf_tpu_torch.ops import linear_kernels as lk
         from rcf_tpu_torch.ops import warp_kernels as wk
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
@@ -2797,7 +2851,7 @@ def main() -> int:
     phases["kernels"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    for lib in (wk.LIB, ck.LIB, ak.LIB):
+    for lib in (wk.LIB, ck.LIB, ak.LIB, lk.LIB):
         for r in lib.ptxas():
             log(f"  ptxas: {r['entry']}: {r.get('registers')} registers, spill "
                 f"{r.get('spill_stores')}/{r.get('spill_loads')} bytes, {r.get('smem')} bytes shared")
@@ -2851,6 +2905,8 @@ def main() -> int:
                                                                  "rcf_step_crf_bf16")}
     torch.cuda.empty_cache()
     rows.append(attention_timing(torch, ak))
+    torch.cuda.empty_cache()
+    rows.append(linear_timing(torch, lk))
     rows.append(crf_timing(torch, ck, crf_launches))
     phases["timing"] = time.perf_counter() - t0
 

@@ -14,7 +14,11 @@ Position embeddings trained at ``train_grid``² are resized bicubically
 matrices made in numpy, as in JAX. Attention is ``ops/attention_kernels.py::
 dino_attention`` on the ``qkv`` linear's output as it lies: the hand-written
 kernel on the card (forward only), the plain product, softmax, product on
-the CPU; ``forward``'s ``attention_span`` (a context manager factory, the
+the CPU. The linears are ``Linear``, an ``nn.Linear`` (its parameters'
+names, its hooks) whose forward is ``ops/linear_kernels.py::dino_linear``,
+with ``fc1``'s GELU and the blocks' residual adds in its epilogue: the
+split-TF32 kernel on the card (forward only), ``F.linear``, ``F.gelu`` and
+``+`` on the CPU. ``forward``'s ``attention_span`` (a context manager factory, the
 tools' profiler span) is entered around each block's call, so that no span
 sits in this module. Inputs are ``[B, H, W, 3]``
 (ImageNet-normalized), as in JAX. The forward runs with TF32 off
@@ -32,9 +36,9 @@ import warnings
 import numpy as np
 import torch
 from torch import nn
-from torch.nn import functional as F
 
 from ..ops.attention_kernels import dino_attention
+from ..ops.linear_kernels import dino_linear
 from ..utils.constants import device_constant
 from ..utils.platform import resolve_device
 from ..utils.precision import full_f32
@@ -65,15 +69,29 @@ def _cubic_matrix(in_size: int, scale: float) -> np.ndarray:
     return mat
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` whose forward is ``dino_linear``: ``act(x W^T + b) (+
+    residual)`` in one call, ``act`` exact GELU with ``gelu``."""
+
+    def __init__(self, in_features: int, out_features: int, gelu: bool = False):
+        super().__init__(in_features, out_features)
+        self.gelu = gelu
+
+    def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None) -> torch.Tensor:
+        return dino_linear(x, self.weight, self.bias, gelu=self.gelu, residual=residual)
+
+
 class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = nn.Linear(dim, dim * 3)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, dim * 3)
+        self.proj = Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor, return_k: bool = False,
-                span=contextlib.nullcontext) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_k: bool = False, span=contextlib.nullcontext,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
+        """proj(attention(qkv(x))) (+ residual, in the projection's epilogue),
+        or the keys with ``return_k``."""
         b, n, d = x.shape
         hd = d // self.num_heads
         qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, hd)
@@ -81,17 +99,18 @@ class Attention(nn.Module):
             return qkv[:, :, 1].reshape(b, n, d)
         with span():
             out = dino_attention(qkv)  # [B, N, heads hd]
-        return self.proj(out)
+        return self.proj(out, residual=residual)
 
 
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc1 = Linear(dim, hidden, gelu=True)
+        self.fc2 = Linear(hidden, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+    def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None) -> torch.Tensor:
+        """fc2(GELU(fc1(x))) (+ residual, in fc2's epilogue)."""
+        return self.fc2(self.fc1(x), residual=residual)
 
 
 class Block(nn.Module):
@@ -106,8 +125,8 @@ class Block(nn.Module):
                 span=contextlib.nullcontext) -> torch.Tensor:
         if return_k:
             return self.attn(self.norm1(x), return_k=True)
-        x = x + self.attn(self.norm1(x), span=span)
-        return x + self.mlp(self.norm2(x))
+        x = self.attn(self.norm1(x), span=span, residual=x)
+        return self.mlp(self.norm2(x), residual=x)
 
 
 class PatchEmbed(nn.Module):

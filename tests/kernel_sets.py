@@ -15,6 +15,8 @@ runs it.
   (``CRF_TOL``) and the float64 yardstick (``crf_filter_f64``).
 * dino_attention: the sets of ``ATTENTION_SETS`` (``attention_inputs``) and
   the gap to float64 (``attention_gap``).
+* dino_linear: the sets of ``LINEAR_SETS`` (``linear_inputs``) and the gap
+  to float64 (``linear_gap``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 
 from rcf_tpu_torch.ops import attention_kernels as ak
 from rcf_tpu_torch.ops import crf as crf_ops
+from rcf_tpu_torch.ops import linear_kernels as lk
 
 # ---------------------------------------------------------------- warps
 
@@ -235,4 +238,42 @@ def attention_gap(ours: torch.Tensor, qkv: torch.Tensor) -> float:
     """The largest |o - o64| over the largest |o64| of the call, against the
     plain attention in float64."""
     ref = ak.dino_attention_plain(qkv.double())
+    return float((ours.double() - ref).abs().max() / ref.abs().max())
+
+
+# ---------------------------------------------------------------- dino_linear
+
+# name -> (rows, K, N, GELU, residual): the DINO cell's four linears at its
+# M = 8 x 6,421 (vit_small/8 at 480 x 856: qkv, proj with the residual, fc1
+# with GELU, fc2 with the residual); vit_base's widths (768 -> 2,304, 768 ->
+# 3,072 with GELU, 3,072 -> 768 with the residual) at one frame; ragged M
+# (1, 127 and 6,421 rows: under one tile, one short of it, a frame) with
+# both epilogues. The cell's M is ragged too: 401 tiles of 128 and 40 rows.
+LINEAR_SETS = {"qkv": (51368, 384, 1152, False, False), "proj": (51368, 384, 384, False, True),
+               "fc1": (51368, 384, 1536, True, False), "fc2": (51368, 1536, 384, False, True),
+               "base_qkv": (6421, 768, 2304, False, False),
+               "base_fc1": (6421, 768, 3072, True, False),
+               "base_fc2": (6421, 3072, 768, False, True),
+               **{f"ragged_{m}": (m, 384, 1536, True, True) for m in (1, 127, 6421)}}
+
+
+def linear_inputs(name: str, device="cuda") -> dict:
+    """The keyword arguments of ``dino_linear`` for the set ``name``: x ~ N(0, 1)
+    (a LayerNorm's output), weight ~ N(0, 1 / K) (a trained linear's scale),
+    bias ~ N(0, 0.1^2), residual ~ N(0, 1); made on ``device`` from a seed."""
+    m, k, n, gelu, res = LINEAR_SETS[name]
+    g = torch.Generator(device=device).manual_seed(m + k + n)
+    args = {"x": torch.randn((m, k), generator=g, device=device),
+            "weight": torch.randn((n, k), generator=g, device=device) * k ** -0.5,
+            "bias": torch.randn((n,), generator=g, device=device) * 0.1, "gelu": gelu}
+    if res:
+        args["residual"] = torch.randn((m, n), generator=g, device=device)
+    return args
+
+
+def linear_gap(ours: torch.Tensor, args: dict) -> float:
+    """The largest |y - y64| over the largest |y64| of the call, against the
+    plain linear, GELU and residual add in float64."""
+    ref = lk.dino_linear_plain(**{k: v.double() if torch.is_tensor(v) else v
+                                  for k, v in args.items()})
     return float((ours.double() - ref).abs().max() / ref.abs().max())

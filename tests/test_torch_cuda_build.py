@@ -15,7 +15,7 @@ import re
 
 import pytest
 
-from rcf_tpu_torch.ops import attention_kernels, crf_kernels, warp_kernels
+from rcf_tpu_torch.ops import attention_kernels, crf_kernels, linear_kernels, warp_kernels
 
 
 def _ctype(param: str):
@@ -45,7 +45,7 @@ def _extern_c(src: str) -> dict:
     return out
 
 
-@pytest.mark.parametrize("module", [warp_kernels, crf_kernels, attention_kernels],
+@pytest.mark.parametrize("module", [warp_kernels, crf_kernels, attention_kernels, linear_kernels],
                          ids=lambda m: m.__name__.rsplit(".", 1)[1])
 def test_declared_entry_points_are_the_sources_c_functions(module):
     src = ""

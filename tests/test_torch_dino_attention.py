@@ -22,6 +22,7 @@ import re
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from rcf_tpu_torch.nn import dino_vit
 from rcf_tpu_torch.ops import attention_kernels as ak
@@ -44,12 +45,25 @@ def _former_attention(qkv: torch.Tensor) -> torch.Tensor:
     return out.transpose(1, 2).reshape(b, n, heads * hd)
 
 
-def _former_forward(self, x, return_k=False, span=None):
+def _linear(module, x):
+    return F.linear(x, module.weight, module.bias)
+
+
+def _former_attention_forward(self, x, return_k=False):
     b, n, d = x.shape
-    qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, d // self.num_heads)
+    qkv = _linear(self.qkv, x).reshape(b, n, 3, self.num_heads, d // self.num_heads)
     if return_k:
         return qkv[:, :, 1].reshape(b, n, d)
-    return self.proj(_former_attention(qkv))
+    return _linear(self.proj, _former_attention(qkv))
+
+
+def _former_block_forward(self, x, return_k=False, span=None):
+    """``Block.forward`` as the ViT ran it before the kernels: ``F.linear`` (the
+    former ``nn.Linear``), ``F.gelu`` and the residual adds apart."""
+    if return_k:
+        return _former_attention_forward(self.attn, self.norm1(x), return_k=True)
+    x = x + _former_attention_forward(self.attn, self.norm1(x))
+    return x + _linear(self.mlp.fc2, F.gelu(_linear(self.mlp.fc1, self.norm2(x)), approximate="none"))
 
 
 @pytest.mark.parametrize("b, n, heads, hd", [(2, 37, 2, 32), (1, 65, 6, 64), (3, 1, 1, 16)])
@@ -61,15 +75,18 @@ def test_plain_is_the_former_attention_bit_for_bit(b, n, heads, hd):
     assert ak.LAUNCHES["dino_attention"] == 0  # the CPU never launches
 
 
-def test_vit_forward_is_the_former_bit_for_bit(monkeypatch):
-    """A depth-3 ViT (2 heads of 32) through the wrapper, keys and tokens, equal
-    to the same ViT with the former ``Attention.forward``."""
+@pytest.mark.parametrize("dim, heads, mlp_ratio", [(64, 2, 4.0), (96, 3, 2.0)])
+def test_vit_forward_is_the_former_bit_for_bit(monkeypatch, dim, heads, mlp_ratio):
+    """A depth-3 ViT through the wrappers (``dino_attention``, ``dino_linear``
+    with its GELU and residual epilogues), keys and tokens, equal to the same
+    ViT with the former ``Block.forward``: nn.Linear, F.gelu and + apart."""
     torch.manual_seed(1)
-    vit = dino_vit.DinoViT(patch_size=8, embed_dim=64, depth=3, num_heads=2, train_grid=4).eval()
+    vit = dino_vit.DinoViT(patch_size=8, embed_dim=dim, depth=3, num_heads=heads,
+                           mlp_ratio=mlp_ratio, train_grid=4).eval()
     imgs = torch.randn(2, 40, 48, 3)
     with torch.no_grad():
         ours = vit(imgs), vit(imgs, return_last_k=True)
-        monkeypatch.setattr(dino_vit.Attention, "forward", _former_forward)
+        monkeypatch.setattr(dino_vit.Block, "forward", _former_block_forward)
         former = vit(imgs), vit(imgs, return_last_k=True)
     assert all(torch.equal(a, b) for a, b in zip(ours, former))
 
@@ -166,7 +183,9 @@ def test_kernel_matches_float64_at_ragged_sizes(cuda, name):
 
 @pytest.mark.cuda
 def test_launches_count_one_a_call_and_one_a_block(cuda):
-    """One launch a call; a ViT of depth 4 makes 3 (its last block gives keys)."""
+    """One launch a call; a ViT of depth 4 makes 3 (its last block gives keys).
+    The ViT is moco_vit_small's width (12 heads of 32), one that the linears'
+    kernel takes."""
     qkv = ks.attention_qkv(2, 70, 2, 32, device=cuda)
     ak.reset_launch_counts()
     with torch.no_grad():
@@ -174,7 +193,7 @@ def test_launches_count_one_a_call_and_one_a_block(cuda):
             ak.dino_attention(qkv)
     assert ak.LAUNCHES["dino_attention"] == 3
     torch.manual_seed(2)
-    vit = dino_vit.DinoViT(patch_size=8, embed_dim=64, depth=4, num_heads=2, train_grid=4)
+    vit = dino_vit.DinoViT(patch_size=8, embed_dim=384, depth=4, num_heads=12, train_grid=4)
     vit = vit.to(cuda).eval()
     ak.reset_launch_counts()
     with torch.no_grad():

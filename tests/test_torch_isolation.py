@@ -39,7 +39,7 @@ _IMPORT_ALL = textwrap.dedent("""
     import rcf_tpu_torch
     sys.path.insert(0, "tests")  # the card tests and their input sets
     names = ["chip_smoke", "kernel_sets", "test_torch_crf_card", "test_torch_warp_card",
-             "test_torch_dino_attention"] + [m.name for m in pkgutil.walk_packages(
+             "test_torch_dino_attention", "test_torch_dino_linear"] + [m.name for m in pkgutil.walk_packages(
         rcf_tpu_torch.__path__, "rcf_tpu_torch.")]
     for name in names:
         importlib.import_module(name)

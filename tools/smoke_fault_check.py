@@ -82,6 +82,18 @@ and the stage-2.1 card-vs-CPU check:
 * ``columns_dropped``: the tile pairs off the diagonal add their weights to
   their rows only (each unordered pair then counts for one of its pixels).
 
+Then two faults built into ``linear.cu`` (``LINEAR_KERNEL_FAULTS``,
+``linear_kernels.LIB.patched``), each run through the dino_linear card tests
+(``tests/test_torch_dino_linear.py``):
+
+* ``linear_lo_dropped``: the products without their hi.lo and lo.hi terms,
+  a single TF32 product;
+* ``linear_tail_dropped``: the rows of the last, ragged row tile not stored,
+  which an M that is a multiple of 128 never shows.
+
+``python3 tools/smoke_fault_check.py linear`` runs that part alone, with
+the sound build's cases first.
+
 Then chip_smoke's data_parallel hold (``chip_smoke.dp_ranks``: two gloo
 ranks on the card, each its own process, against one process with the
 whole batch; ``DP_LIMITS``), sound and with each fault planted in both ranks:
@@ -279,6 +291,27 @@ def crf_kernel_faults(torch, cs, cpu: dict) -> dict:
     return out
 
 
+# The split product's two correction terms, and the test that keeps the rows
+# past M from being stored, in linear.cu.
+LINEAR_KERNEL_FAULTS = {
+    "linear_lo_dropped": [("  wgmma(d, al, bh, add);\n  wgmma(d, ah, bl, 1);\n  wgmma(d, ah, bh, 1);\n",
+                           "  wgmma(d, ah, bh, add);\n")],
+    "linear_tail_dropped": [("        if (r >= m) continue;", "        if (r >= m / kRows * kRows) continue;")],
+}
+
+
+def linear_kernel_faults() -> dict:
+    """The dino_linear card tests with each of LINEAR_KERNEL_FAULTS built into linear.cu."""
+    from rcf_tpu_torch.ops import linear_kernels as lk
+
+    out = {}
+    for name, reps in LINEAR_KERNEL_FAULTS.items():
+        with lk.LIB.patched(reps, f"fault_{name}"):
+            out[name] = card_cases(["tests/test_torch_dino_linear.py"])
+        print_cases(name, out[name])
+    return out
+
+
 def rcf_crf_faults(torch, cs, cpu: dict) -> dict:
     """chip_smoke's stage-2.1 readings (``cpu``: the CPU's), sound and with each
     planted fault."""
@@ -415,6 +448,11 @@ def main() -> int:
         return cs.dp_rank_main(torch, int(sys.argv[3]), sys.argv[4])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
+    if sys.argv[1:] == ["linear"]:
+        sound = card_cases(["tests/test_torch_dino_linear.py"])
+        print_cases("sound", sound)
+        print(json.dumps({"device": smi, "linear": {"sound": sound, **linear_kernel_faults()}}))
+        return 0
     if sys.argv[1:] == ["data_parallel"]:
         print(f"device {smi}; data_parallel limits {cs.DP_LIMITS}", flush=True)
         print(json.dumps({"device": smi, "data_parallel": data_parallel_faults(torch, cs)}))
@@ -513,10 +551,12 @@ def main() -> int:
     crf_cpu = cs.rcf_crf_reference_readings(torch, "cpu")
     crf = rcf_crf_faults(torch, cs, crf_cpu)
     crf_kernel = crf_kernel_faults(torch, cs, crf_cpu)
+    linear_kernel = linear_kernel_faults()
     print(f"data_parallel limits {cs.DP_LIMITS}", flush=True)
     dp = data_parallel_faults(torch, cs)
     print(json.dumps({"device": smi, "cases": out, "card": card,
                       "rcf": rcf, "rcf_crf": crf, "crf_kernel": crf_kernel,
+                      "linear_kernel": linear_kernel,
                       "data_parallel": dp}))
     return 0
 
